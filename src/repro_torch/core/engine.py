@@ -1,0 +1,782 @@
+"""Differential IFE engine — the paper's maintenance procedure, dense, in PyTorch.
+
+The port of ``repro/core/engine.py`` for one configuration of it: JOD mode
+(Join-On-Demand, §4: no per-edge join store, messages are recomputed from
+in-neighbour states every iteration), no partial dropping, one device, with
+the ``coo`` (scatter-reduce) or ``ell`` (CUDA ``ell_spmv`` kernel) aggregator.
+VDC mode, dropping, the ``fused`` backend, the query-slot pool and the
+vertex-sharded sweep raise :class:`NotImplementedError` until their slices of
+the port land (ROADMAP Queue 1 item 3).
+
+Timestamps are eager-merged (§4.2) so each (query, vertex) holds a 1-D sorted
+list of (iteration, state) change points; negative multiplicities are implied
+(DESIGN.md §2).
+
+Maintenance is a bounded forward sweep over IFE iterations.  Per iteration i:
+
+    cur        exact D_{i-1} for every vertex
+    sched_i    vertices whose aggregator must rerun: frontier (δD direct
+               rule) ∪ dirty (δE direct rule + upper-bound rule: touched
+               endpoints are rerun at every live iteration — spurious reruns
+               are safe, Thm 4.1 corollary)
+    changed_i  sched_i whose recomputed value differs from the pre-update
+               trajectory → out-neighbours enter frontier_{i+1}
+
+The sweep ends when the frontier is empty and i exceeds the stored horizon
+(max change-point iteration), bounded by ``max_iters``.  The reference runs
+it as one ``lax.while_loop``; here it is a host loop that reads the two loop
+scalars (``live``, ``horizon``) from the device once per iteration.
+
+Every function below is pure in the engine state: a sweep builds new store
+tensors and leaves its input state as it was, which is how the pre-update
+store stays frozen for δ detection.  :func:`batched_step` updates the graph
+arrays in place, where the reference donates them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import diffstore as ds
+from repro_torch.core import dropping as dr
+from repro_torch.core.graph import DynamicGraph, EllIndex, EllOverflow, GraphSnapshot
+from repro_torch.core.semiring import Semiring, reduce_pair
+from repro_torch.kernels.ell_spmv import ell_spmv
+from repro_torch.obs import trace as obs_trace
+
+Tensor = torch.Tensor
+
+SLOT_POOL = "the slot-pool slice of the port (ROADMAP Queue 1 item 3(f))"
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device; the CPU runs only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: repro_torch runs on the GPU by default; pass "
+                "device='cpu' to run the plain PyTorch versions on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+# --------------------------------------------------------------------------- graph arrays
+class GraphArrays(NamedTuple):
+    """Fixed-shape device view of the graph (COO + degrees).
+
+    With ``backend="ell"`` the bucketed in-adjacency (``nbr``/``ell_w``,
+    shape [V, D]) rides along for the ELL kernel; the COO arrays stay — the
+    frontier push and the δE dirty propagation are edge-indexed.
+    """
+
+    src: Tensor  # int32 [E]
+    dst: Tensor  # int32 [E]
+    weight: Tensor  # f32 [E]
+    valid: Tensor  # bool [E]
+    out_degree: Tensor  # int32 [V]
+    in_degree: Tensor  # int32 [V]
+    nbr: Tensor | None = None  # int32 [V, D] in-neighbour ids (== V padding)
+    ell_w: Tensor | None = None  # f32 [V, D] edge weights
+
+    @property
+    def num_vertices(self) -> int:
+        return self.out_degree.shape[0]
+
+    @property
+    def ell_width(self) -> int:
+        return 0 if self.nbr is None else int(self.nbr.shape[1])
+
+    @classmethod
+    def from_snapshot(
+        cls,
+        s: GraphSnapshot,
+        *,
+        backend: str = "coo",
+        ell_min_width: int = 0,
+        device=None,
+    ) -> "GraphArrays":
+        device = resolve_device(device)
+
+        def put(x: np.ndarray) -> Tensor:
+            return torch.from_numpy(x).to(device)
+
+        nbr = ell_w = None
+        if backend == "ell":
+            nbr_np, w_np, _ = s.to_ell(min_width=ell_min_width)
+            nbr, ell_w = put(nbr_np), put(w_np)
+        return cls(
+            src=put(s.src),
+            dst=put(s.dst),
+            weight=put(s.weight),
+            valid=put(s.valid),
+            out_degree=put(s.out_degree),
+            in_degree=put(s.in_degree),
+            nbr=nbr,
+            ell_w=ell_w,
+        )
+
+
+# --------------------------------------------------------------------------- config / state
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    num_queries: int
+    num_vertices: int
+    max_iters: int
+    semiring: Semiring
+    mode: str = "jod"  # "vdc" | "jod"
+    store_capacity: int = 16  # S: change points per (q, v)
+    drop: dr.DropConfig = dataclasses.field(default_factory=dr.DropConfig)
+    # PageRank: edge weight is alpha / outdeg(src), recomputed from degrees so
+    # deletions retune every sibling message (dirty mask covers them).
+    weight_from_degree: bool = False
+    alpha: float = 0.85
+    # Aggregator backend: "coo" = masked scatter-reduce over the edge list;
+    # "ell" = the CUDA bucketed-ELL SpMV kernel (JOD only — the kernel *is*
+    # the fused Join+Min); "fused" = the maintenance megakernel (not ported).
+    backend: str = "coo"
+
+    def __post_init__(self):
+        if self.mode not in ("vdc", "jod"):
+            raise ValueError(f"unknown mode {self.mode!r}")
+        if self.backend not in ("coo", "ell", "fused"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.backend == "ell" and self.mode != "jod":
+            raise ValueError("backend='ell' realizes JOD; VDC reads the J store")
+        if self.mode == "vdc":
+            raise NotImplementedError(
+                "mode='vdc' (the per-edge J store) is not ported yet: it comes "
+                "with the VDC slice of the port (ROADMAP Queue 1 item 3(e))"
+            )
+        if self.backend == "fused":
+            raise NotImplementedError(
+                "backend='fused' (the maintenance megakernel, K2) is not ported "
+                "yet: it is the next slice of the port (ROADMAP Queue 1 item 3(d))"
+            )
+        if self.drop.enabled():
+            raise NotImplementedError(dr.UNPORTED.format(mode=self.drop.mode))
+
+
+class EngineState(NamedTuple):
+    dstore: ds.DiffStore  # [Q, V, S] — the Iterate operator's difference store
+    jstore: ds.DiffStore | None  # [Q, E, S_J] — the Join operator's store (vdc)
+    drop: dr.DropState
+    init: Tensor  # f32 [Q, V] — D_0 (implicit iteration-0 diffs)
+    cur: Tensor  # f32 [Q, V] — exact values at the last swept iteration
+    repair_counts: Tensor  # int32 [Q, V] — dropped-diff recomputations (Fig 6b)
+    active: Tensor  # bool [Q] — live query slots
+    join_mat: Tensor | None = None  # bool [Q] — per-slot Join materialization (vdc)
+
+
+# Per-iteration probe depth: sweep iterations beyond this fold into the last bin.
+ITER_TRACE = 32
+
+
+class MaintainStats(NamedTuple):
+    iters_run: Tensor  # int32
+    scheduled: Tensor  # int32 — Σ|sched_i| (algorithmic work, vertex reruns)
+    changed: Tensor  # int32 — Σ|changed_i| (δD differences produced)
+    repairs: Tensor  # int32 — Σ|repair_i \ sched_i| (dropped diffs recomputed)
+    written: Tensor  # int32 — change points upserted
+    removed: Tensor  # int32 — change points deleted (cancelled +/- pairs)
+    dropped: Tensor  # int32 — change points dropped instead of stored
+    jwritten: Tensor  # int32 — J change points upserted (vdc)
+    det_overflow: Tensor  # int32 — dropped VT records lost to Det-Drop store
+    sched_sizes: Tensor  # int32 [ITER_TRACE] — |sched_i| per iteration
+    frontier_sizes: Tensor  # int32 [ITER_TRACE] — |frontier_{i+1}| per iteration
+
+    SCALAR_FIELDS = (
+        "iters_run", "scheduled", "changed", "repairs", "written",
+        "removed", "dropped", "jwritten", "det_overflow",
+    )
+    VECTOR_FIELDS = ("sched_sizes", "frontier_sizes")
+
+
+def zeros_stats(device=None) -> MaintainStats:
+    z = torch.zeros((), dtype=torch.int32, device=device)
+    t = torch.zeros((ITER_TRACE,), dtype=torch.int32, device=device)
+    return MaintainStats(z, z, z, z, z, z, z, z, z, t, t)
+
+
+def _stats_to_host(stats: MaintainStats) -> MaintainStats:
+    """Numpy copies of the counters (what ``last_stats`` holds)."""
+    return MaintainStats(*(x.cpu().numpy() for x in stats))
+
+
+def _count(mask: Tensor) -> Tensor:
+    """int32 popcount of a bool mask (torch sums bools to int64)."""
+    return mask.sum(dtype=torch.int32)
+
+
+# --------------------------------------------------------------------------- IFE primitives
+def _alpha_over(cfg: EngineConfig, outd: Tensor) -> Tensor:
+    """``float32(alpha) / outd`` as a float32 division: a Python float over a
+    tensor would compute ``reciprocal(outd) * alpha``, which rounds
+    differently from the reference."""
+    return torch.full_like(outd, cfg.alpha) / outd
+
+
+def effective_weight(cfg: EngineConfig, g: GraphArrays) -> Tensor:
+    if cfg.weight_from_degree:
+        outd = g.out_degree.index_select(0, g.src).clamp(min=1).to(torch.float32)
+        return _alpha_over(cfg, outd)
+    return g.weight
+
+
+def edge_messages(cfg: EngineConfig, states: Tensor, g: GraphArrays) -> Tensor:
+    """J from D: per-edge messages, identity on invalid slots. [Q, E]"""
+    sr = cfg.semiring
+    msgs = sr.msg(states.index_select(1, g.src), effective_weight(cfg, g)[None, :])
+    return torch.where(g.valid[None, :], msgs, sr.identity)
+
+
+def aggregate(cfg: EngineConfig, msgs: Tensor, cur: Tensor, g: GraphArrays) -> Tensor:
+    """D_i from J_i (+ carry of D_{i-1}): the Min/Sum operator. [Q, V]
+
+    Empty segments read +inf under min and 0 under sum, as the reference's
+    ``segment_min``/``segment_sum`` fill them.
+    """
+    sr = cfg.semiring
+    q, v = msgs.shape[0], cfg.num_vertices
+    if sr.reduce == "min":
+        agg = torch.full((q, v), float("inf"), dtype=msgs.dtype, device=msgs.device)
+        idx = g.dst.long()[None, :].expand(q, -1)
+        agg.scatter_reduce_(1, idx, msgs, "amin", include_self=True)
+    else:
+        agg = torch.zeros((q, v), dtype=msgs.dtype, device=msgs.device)
+        agg.index_add_(1, g.dst, msgs)
+    if sr.carry_prev:
+        return reduce_pair(sr, agg, cur)
+    return agg + torch.full_like(agg, sr.base)
+
+
+def _ell_weights(cfg: EngineConfig, g: GraphArrays) -> Tensor:
+    """ELL weight tile; degree-derived weights are re-gathered every step so
+    a δE batch retunes every sibling message without rewriting [V, D] cells."""
+    if cfg.weight_from_degree:
+        one = torch.ones((1,), dtype=torch.int32, device=g.out_degree.device)
+        # index V (padding sentinel) → 1; its state is the identity 0 anyway
+        outd = torch.cat([g.out_degree.clamp(min=1), one])
+        return _alpha_over(cfg, outd[g.nbr.long()].to(torch.float32))
+    return g.ell_w
+
+
+def ell_step(cfg: EngineConfig, cur: Tensor, g: GraphArrays) -> Tensor:
+    """One exact IFE step through the ELL SpMV kernel (JOD fused)."""
+    sr = cfg.semiring
+    pad = torch.full((cur.shape[0], 1), sr.identity, dtype=cur.dtype, device=cur.device)
+    states = torch.cat([cur, pad], dim=1)  # padding cells gather the identity
+    kcarry = cur if sr.carry_prev else torch.full_like(cur, sr.base)
+    return ell_spmv(
+        states, g.nbr, _ell_weights(cfg, g), kcarry,
+        semiring=sr.kernel_name, hop_cap=sr.hop_cap,
+    )
+
+
+def ife_step(cfg: EngineConfig, cur: Tensor, g: GraphArrays) -> Tensor:
+    """One exact IFE step D_{i-1} → D_i (join recomputed — the JOD path)."""
+    if cfg.backend == "ell":
+        return ell_step(cfg, cur, g)
+    return aggregate(cfg, edge_messages(cfg, cur, g), cur, g)
+
+
+def push_frontier(changed: Tensor, g: GraphArrays) -> Tensor:
+    """Out-neighbour mask of changed vertices (δD direct rule).
+
+    The reference takes a ``segment_max`` of the per-edge hits over ``dst``;
+    an OR needs no reduction, so the (few) hit edges set their destination
+    directly — a scatter-add over every ``[Q, E]`` cell costs far more on
+    the card (see PERF.md).
+    """
+    hit = changed.index_select(1, g.src) & g.valid[None, :]
+    q_idx, e_idx = hit.nonzero(as_tuple=True)
+    out = torch.zeros(changed.shape, dtype=torch.bool, device=changed.device)
+    out[q_idx, g.dst[e_idx].long()] = True
+    return out
+
+
+# --------------------------------------------------------------------------- maintenance
+def make_state(cfg: EngineConfig, init: Tensor, num_edges: int) -> EngineState:
+    """Engine state for ``cfg.num_queries`` slots, all active."""
+    del num_edges  # sizes the J store, which JOD does not keep
+    q, v = cfg.num_queries, cfg.num_vertices
+    if tuple(init.shape) != (q, v):
+        raise ValueError(f"init shape {tuple(init.shape)} != {(q, v)}")
+    dev = init.device
+    init = init.to(torch.float32)
+    return EngineState(
+        dstore=ds.make((q, v), cfg.store_capacity, device=dev),
+        jstore=None,
+        drop=dr.make_state(cfg.drop, q, v, device=dev),
+        init=init,
+        cur=init,
+        repair_counts=torch.zeros((q, v), dtype=torch.int32, device=dev),
+        active=torch.ones((q,), dtype=torch.bool, device=dev),
+    )
+
+
+def stored_horizon(store: ds.DiffStore) -> Tensor:
+    """Max change-point iteration present anywhere (the upper-bound frontier)."""
+    return torch.where(store.iters < ds.IMAX, store.iters, -1).max()
+
+
+class _Carry(NamedTuple):
+    i: int  # the iteration this body computes (host loop counter)
+    cur: Tensor  # exact D_{i-1}
+    cur_old: Tensor  # pre-update trajectory value at i-1 (store-lookup based)
+    frontier: Tensor  # bool [Q,V]: δD direct-rule schedule for iteration i
+    dstore: ds.DiffStore
+    horizon: Tensor  # int32 — running max change-point iteration (upper bound)
+    live: Tensor  # bool — work remains (frontier ∪ dirty nonempty)
+    stats: MaintainStats
+
+
+def _sweep_body(
+    cfg: EngineConfig,
+    g: GraphArrays,
+    dirty: Tensor,
+    old_dstore: ds.DiffStore,
+    active: Tensor,
+    c: _Carry,
+) -> _Carry:
+    """One IFE iteration of the stitched JOD sweep.  Dropping is disabled, so
+    there is no repair set, no stale old trajectory and no DroppedVT
+    registration — evicted points are simply lost, as in the reference's
+    mode-``none`` path."""
+    i = c.i
+    # δE direct + upper-bound rules: dirty endpoints rerun at every live i
+    sched = (c.frontier | dirty) & active[:, None]
+    new = ife_step(cfg, c.cur, g)
+
+    # pre-update trajectory at i (δ detection), from the frozen store
+    old_has, old_val = ds.value_at(old_dstore, i)
+    old_i = torch.where(old_has, old_val, c.cur_old)
+    changed = sched & (new != old_i)
+
+    # new trajectory change point at i?  (vs exact D_{i-1} = cur)
+    want_point = sched & (new != c.cur)
+    has_cur, cur_stored_val = ds.value_at(c.dstore, i)
+    to_store = want_point
+    dstore, _evicted, _evicted_iter = ds.upsert(c.dstore, i, to_store, new)
+    # a vanished change point (+/- pair cancelled) is deleted
+    vanish = sched & ~want_point & has_cur
+    dstore = ds.remove_at(dstore, i, vanish)
+
+    # advance the exact trajectory
+    cur_next = torch.where(sched, new, torch.where(has_cur, cur_stored_val, c.cur))
+    # | changed: carry a changed vertex's own next value
+    frontier_next = push_frontier(changed, g) | changed
+
+    # per-iteration probe: iteration i lands in bin i-1 (clamped to the last bin)
+    bin_i = min(i - 1, ITER_TRACE - 1)
+    n_sched = _count(sched)
+    sched_sizes = c.stats.sched_sizes.clone()
+    sched_sizes[bin_i] += n_sched
+    frontier_sizes = c.stats.frontier_sizes.clone()
+    frontier_sizes[bin_i] += _count(frontier_next)
+    stats = c.stats._replace(
+        iters_run=c.stats.iters_run + 1,
+        scheduled=c.stats.scheduled + n_sched,
+        changed=c.stats.changed + _count(changed),
+        written=c.stats.written + _count(to_store),
+        removed=c.stats.removed + _count(vanish),
+        sched_sizes=sched_sizes,
+        frontier_sizes=frontier_sizes,
+    )
+    horizon = torch.where(to_store.any(), c.horizon.clamp(min=i), c.horizon)
+    return _Carry(
+        i=i + 1,
+        cur=cur_next,
+        cur_old=old_i,
+        frontier=frontier_next,
+        dstore=dstore,
+        horizon=horizon,
+        live=frontier_next.any() | dirty.any(),
+        stats=stats,
+    )
+
+
+def _maintain_core(
+    cfg: EngineConfig, state: EngineState, g: GraphArrays, dirty: Tensor
+) -> tuple[EngineState, MaintainStats]:
+    """The maintenance loop.  ``dirty`` is the per-query [Q, V] schedule seed.
+
+    Continue while work is scheduled (frontier/dirty) AND the sweep can still
+    mutate the store: mutations happen only at i ≤ horizon+1 (an in-neighbour
+    change point at j feeds a consumer at j+1, and fresh writes at i extend
+    the horizon to ≥ i).  i == 1 always runs when anything is dirty.
+    """
+    old_dstore = state.dstore  # frozen: the sweep never writes into it
+    zeros = torch.zeros(dirty.shape, dtype=torch.bool, device=dirty.device)
+    c = _Carry(
+        i=1,
+        cur=state.init,
+        cur_old=state.init,
+        frontier=zeros,
+        dstore=state.dstore,
+        horizon=stored_horizon(state.dstore),
+        live=dirty.any(),
+        stats=zeros_stats(dirty.device),
+    )
+    while c.i <= cfg.max_iters:
+        live, horizon = torch.stack([c.live.to(torch.int32), c.horizon]).tolist()
+        if not (live and (c.i == 1 or c.i <= horizon + 1)):
+            break
+        c = _sweep_body(cfg, g, dirty, old_dstore, state.active, c)
+    new_state = state._replace(dstore=c.dstore, cur=c.cur)
+    return new_state, c.stats
+
+
+def _dirty_2d(cfg: EngineConfig, dirty: Tensor) -> Tensor:
+    """Normalize a [V] vertex mask to the per-query [Q, V] schedule seed."""
+    dirty = dirty.to(torch.bool)
+    if dirty.ndim == 1:
+        dirty = dirty[None, :].expand(cfg.num_queries, -1)
+    return dirty
+
+
+def maintain(
+    cfg: EngineConfig, state: EngineState, g: GraphArrays, dirty: Tensor
+) -> tuple[EngineState, MaintainStats]:
+    """One maintenance sweep after a δE batch (or initial computation).
+
+    ``dirty`` is the bool mask of vertices whose in-edge set (or, for
+    degree-derived weights, whose incoming message weights) changed — [V]
+    (broadcast to every query) or [Q, V].  For the initial computation pass
+    ``dirty = ones`` with an empty store — the sweep then *is* the static IFE
+    run, recording change points as it goes.
+    """
+    return _maintain_core(cfg, state, g, _dirty_2d(cfg, dirty))
+
+
+def answers(cfg: EngineConfig, state: EngineState) -> Tensor:
+    """Final vertex states after the last maintenance sweep. [Q, V]"""
+    return state.cur
+
+
+def nbytes_accounted(cfg: EngineConfig, state: EngineState) -> int:
+    """Difference-entry bytes, the paper's memory metric (8 B per diff:
+    4 B iteration + 4 B state)."""
+    del cfg  # no J store, no DroppedVT in the ported configurations
+    return int(state.dstore.count.sum()) * 8
+
+
+# --------------------------------------------------------------------------- batched updates
+class UpdateBatch(NamedTuple):
+    """Fixed-shape device encoding of ≤ B resolved edge updates.
+
+    One row per touched edge slot, holding the slot's *final* contents after
+    the whole chunk (the host coalesces, so scatter order never matters).
+    Padding rows carry out-of-range indices — slot == E_cap, vertex == V,
+    ell_row == V — which :func:`batched_step` masks out.
+    """
+
+    slot: Tensor  # int32 [B] — edge slot; E_cap padding
+    src: Tensor  # int32 [B] — final slot source
+    dst: Tensor  # int32 [B] — final slot destination
+    weight: Tensor  # f32  [B] — final slot weight
+    valid: Tensor  # bool [B] — final slot validity
+    dirty_v: Tensor  # int32 [B] — endpoint to dirty (δE direct rule); V padding
+    touched_src: Tensor  # int32 [B] — update source (degree-retune rule); V padding
+    ell_row: Tensor  # int32 [B] — ELL cell writes (backend="ell"); V padding
+    ell_col: Tensor  # int32 [B]
+    ell_nbr: Tensor  # int32 [B]
+    ell_w: Tensor  # f32  [B]
+
+
+def _mark(n: int, idx: Tensor) -> Tensor:
+    """bool [n] with ``idx`` set; ``idx == n`` (padding) lands on a sentinel
+    cell that is sliced off."""
+    out = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
+    out[idx.long()] = True
+    return out[:n]
+
+
+def batched_step(
+    cfg: EngineConfig, state: EngineState, g: GraphArrays, upd: UpdateBatch
+) -> tuple[EngineState, GraphArrays, MaintainStats]:
+    """Fold one δE chunk into the graph arrays and run ONE maintenance sweep.
+
+    The device-side twin of ``DiffIFE.apply_updates``: edge scatter, degree
+    refresh, dirty-mask construction and the sweep.  The edge and ELL
+    buffers of ``g`` are written in place and returned (the reference
+    donates them); the engine state is not modified.
+    """
+    v, e = cfg.num_vertices, g.src.shape[0]
+    keep = upd.slot < e  # padding rows (slot == E_cap) scatter nothing
+    slot = upd.slot[keep].long()
+    src = g.src.index_put_((slot,), upd.src[keep])
+    dst = g.dst.index_put_((slot,), upd.dst[keep])
+    weight = g.weight.index_put_((slot,), upd.weight[keep])
+    valid = g.valid.index_put_((slot,), upd.valid[keep])
+    # degrees recomputed from the edge list — immune to host/device drift
+    live = valid.to(torch.int32)
+    out_degree = torch.zeros(v, dtype=torch.int32, device=live.device).index_add_(0, src, live)
+    in_degree = torch.zeros(v, dtype=torch.int32, device=live.device).index_add_(0, dst, live)
+    nbr, ell_w = g.nbr, g.ell_w
+    if cfg.backend == "ell":
+        row_ok = upd.ell_row < v  # padding rows (ell_row == V) write nothing
+        cell = (upd.ell_row[row_ok].long(), upd.ell_col[row_ok].long())
+        nbr.index_put_(cell, upd.ell_nbr[row_ok])
+        ell_w.index_put_(cell, upd.ell_w[row_ok])
+    g2 = GraphArrays(src, dst, weight, valid, out_degree, in_degree, nbr, ell_w)
+
+    dirty = _mark(v, upd.dirty_v)
+    if cfg.weight_from_degree:
+        # outdeg(u) changed → every out-message of u retunes (δE dirty rule)
+        hit = (_mark(v, upd.touched_src).index_select(0, src) & valid).to(torch.int32)
+        retuned = torch.zeros(v, dtype=torch.int32, device=hit.device).index_add_(0, dst, hit)
+        dirty = dirty | (retuned > 0)
+
+    new_state, stats = maintain(cfg, state, g2, dirty)
+    return new_state, g2, stats
+
+
+def _sum_stats(a: MaintainStats, b: MaintainStats) -> MaintainStats:
+    return MaintainStats(*(x + y for x, y in zip(a, b)))
+
+
+def _span_stats(stats: MaintainStats | None) -> dict:
+    """Sweep attribution for trace spans: scalar counters plus the
+    per-iteration size series trimmed to the iterations actually run."""
+    if stats is None:
+        return {}
+    out = {k: int(getattr(stats, k)) for k in MaintainStats.SCALAR_FIELDS}
+    n = min(max(out["iters_run"], 0), ITER_TRACE)
+    out["sched_sizes"] = [int(x) for x in stats.sched_sizes[:n]]
+    out["frontier_sizes"] = [int(x) for x in stats.frontier_sizes[:n]]
+    return out
+
+
+def _unported(name: str, where: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(f"DiffIFE.{name} is not ported yet: it comes with {where}")
+
+    method.__name__ = name
+    return method
+
+
+# --------------------------------------------------------------------------- host-facing wrapper
+class DiffIFE:
+    """Continuous-query processor: owns the dynamic graph + engine state.
+
+    ``DiffIFE`` is the host driver; device work happens in the functions
+    above.  Two ingestion paths:
+
+    * :meth:`apply_updates` — per-batch host path: mutate the host graph,
+      re-upload the device view, run one sweep.
+    * :meth:`apply_updates_batched` — the throughput path: updates are folded
+      in fixed-shape chunks of ``batch_capacity`` through :func:`batched_step`,
+      so the graph and stores never leave the device.
+
+    With ``cfg.backend == "ell"`` the bucketed in-adjacency rides along; its
+    width ``D`` is kept fixed across updates (host :class:`EllIndex` mirror)
+    and grows geometrically — with a full re-upload — only when a vertex's
+    in-degree outruns it.
+
+    ``device=None`` runs on the CUDA device (and raises without one);
+    ``device="cpu"`` runs the plain PyTorch versions.
+    """
+
+    def __init__(
+        self,
+        cfg: EngineConfig,
+        graph: DynamicGraph,
+        init: np.ndarray | Tensor,
+        *,
+        batch_capacity: int = 32,
+        mesh=None,
+        device=None,
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "the vertex-sharded sweep (mesh=) is not ported yet: it comes "
+                "with the sharded slice of the port (ROADMAP Queue 1 item 3(g))"
+            )
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.graph = graph
+        self.batch_capacity = int(batch_capacity)
+        self._ell_width = 0
+        self._ell_index: EllIndex | None = None
+        self.g = self._device_graph(graph.snapshot())
+        init = torch.as_tensor(init, dtype=torch.float32).to(self.device)
+        self.state = make_state(cfg, init, graph.capacity)
+        self.last_stats: MaintainStats | None = None
+        # cumulative scheduled vertex-reruns across all sweeps
+        self._sched_total = 0
+        # initial computation: every vertex dirty, empty store
+        self._run_counted(np.ones(cfg.num_vertices, dtype=bool))
+
+    # ------------------------------------------------------------ device views
+    def _device_graph(self, snap: GraphSnapshot) -> GraphArrays:
+        if self.cfg.backend == "ell":
+            g = GraphArrays.from_snapshot(
+                snap, backend="ell", ell_min_width=self._ell_width, device=self.device
+            )
+            self._ell_width = g.ell_width
+            self._ell_index = EllIndex(snap, self._ell_width)
+            return g
+        return GraphArrays.from_snapshot(snap, device=self.device)
+
+    def _run(self, dirty: np.ndarray) -> MaintainStats:
+        """One sweep; returns its device-side stats (``last_stats`` gets a
+        host copy)."""
+        dirty_t = torch.from_numpy(np.asarray(dirty, bool)).to(self.device)
+        self.state, stats = maintain(self.cfg, self.state, self.g, dirty_t)
+        self.last_stats = _stats_to_host(stats)
+        return stats
+
+    def _run_counted(self, dirty: np.ndarray) -> None:
+        """_run + fold the sweep into the cumulative recompute-volume signal
+        (the batched path folds its own totals, fallback sweeps included)."""
+        self._run(dirty)
+        self._sched_total += int(self.last_stats.scheduled)
+
+    def _dirty_mask(self, touched, snap: GraphSnapshot) -> np.ndarray:
+        dirty = np.zeros(self.cfg.num_vertices, dtype=bool)
+        for (u, v) in touched:
+            dirty[v] = True
+            if self.cfg.weight_from_degree:
+                # outdeg(src) changed → every out-message of src retunes
+                dirty[snap.dst[(snap.src == u) & snap.valid]] = True
+        return dirty
+
+    # ------------------------------------------------------------- ingestion
+    def apply_updates(self, updates) -> MaintainStats:
+        """Ingest one δE batch and maintain all registered queries."""
+        with obs_trace.span("sweep", "sweep", pid="engine:dense", shards=1) as sp:
+            ops = self.graph.apply_batch_resolved(updates)
+            snap = self.graph.snapshot()
+            self.g = self._device_graph(snap)
+            touched = [(u, v) for (_k, _s, u, v, _w) in ops]
+            self._run_counted(self._dirty_mask(touched, snap))
+            sp.set(num_updates=len(ops), **_span_stats(self.last_stats))
+        return self.last_stats
+
+    def _full_sweep_fallback(self, ops, total: MaintainStats) -> MaintainStats:
+        """Re-upload the full device graph and run one host-path sweep (the
+        once-per-growth escape hatch of the batched stream)."""
+        with obs_trace.span(
+            "full_sweep_fallback", "sweep", pid="engine:dense", num_ops=len(ops)
+        ):
+            snap = self.graph.snapshot()
+            self.g = self._device_graph(snap)
+            touched = [(u, v) for (_k, _s, u, v, _w) in ops]
+            stats = self._run(self._dirty_mask(touched, snap))
+        return _sum_stats(total, stats)
+
+    def apply_updates_batched(
+        self, updates, batch_size: int | None = None
+    ) -> MaintainStats:
+        """Stream a δE log through :func:`batched_step`.
+
+        The log is folded in fixed-shape chunks of ``batch_size`` (default:
+        ``batch_capacity``); per chunk one call scatters the edge slots,
+        refreshes degrees, builds the dirty mask on device and runs the
+        maintenance sweep.  Returns the cumulative stats over the log.
+        """
+        b = int(batch_size if batch_size is not None else self.batch_capacity)
+        updates = list(updates)
+        total = zeros_stats(self.device)
+        with obs_trace.span(
+            "update_batch",
+            "update_batch",
+            pid="engine:dense",
+            num_updates=len(updates),
+            chunk_size=b,
+            shards=1,
+        ) as outer:
+            for lo in range(0, len(updates), b):
+                ops = self.graph.apply_batch_resolved(updates[lo : lo + b])
+                if not ops:
+                    continue
+                ell_writes: list = []
+                if self.cfg.backend == "ell":
+                    try:
+                        ell_writes = self._ell_index.writes_for(ops)
+                    except EllOverflow:
+                        # a vertex outran the fixed D: grow geometrically and
+                        # fall back to a full-view sweep
+                        self._ell_width = max(8, self._ell_width * 2)
+                        total = self._full_sweep_fallback(ops, total)
+                        continue
+                upd = self._encode_chunk(ops, ell_writes, b)
+                # the sweep span covers one chunk's maintenance sweep; the
+                # nested dispatch span is the step call itself.  Per-chunk
+                # stats stay on device (one host sync per log).
+                with obs_trace.span(
+                    "sweep", "sweep", pid="engine:dense", chunk_lo=lo, num_ops=len(ops)
+                ):
+                    with obs_trace.span(
+                        "kernel_dispatch",
+                        "kernel_dispatch",
+                        pid="engine:dense",
+                        chunk_lo=lo,
+                        num_ops=len(ops),
+                        backend=self.cfg.backend,
+                    ):
+                        self.state, self.g, stats = batched_step(
+                            self.cfg, self.state, self.g, upd
+                        )
+                    total = _sum_stats(total, stats)
+            self.last_stats = _stats_to_host(total)
+            outer.set(**_span_stats(self.last_stats))
+        self._sched_total += int(self.last_stats.scheduled)
+        return self.last_stats
+
+    def _encode_chunk(self, ops, ell_writes, b: int) -> UpdateBatch:
+        """Host O(B) encode of resolved ops → fixed-shape UpdateBatch."""
+        if len(ops) > b:
+            raise ValueError(f"chunk of {len(ops)} ops exceeds capacity {b}")
+        v = self.cfg.num_vertices
+        slot = np.full(b, self.graph.capacity, np.int32)
+        src = np.zeros(b, np.int32)
+        dst = np.zeros(b, np.int32)
+        weight = np.zeros(b, np.float32)
+        valid = np.zeros(b, bool)
+        dirty_v = np.full(b, v, np.int32)
+        touched_src = np.full(b, v, np.int32)
+        ell_row = np.full(b, v, np.int32)
+        ell_col = np.zeros(b, np.int32)
+        ell_nbr = np.zeros(b, np.int32)
+        ell_wv = np.zeros(b, np.float32)
+        # final slot contents come from the already-updated host graph, so a
+        # delete+reinsert of one slot inside a chunk coalesces to one row
+        slots = np.fromiter(dict.fromkeys(op[1] for op in ops), np.int64)
+        n = slots.shape[0]
+        slot[:n] = slots
+        src[:n], dst[:n] = self.graph.src[slots], self.graph.dst[slots]
+        weight[:n], valid[:n] = self.graph.weight[slots], self.graph.valid[slots]
+        dirty_v[: len(ops)] = [op[3] for op in ops]
+        touched_src[: len(ops)] = [op[2] for op in ops]
+        for j, wr in enumerate(ell_writes):
+            ell_row[j], ell_col[j] = wr.row, wr.col
+            ell_nbr[j], ell_wv[j] = wr.nbr_val, wr.w_val
+        fields = (slot, src, dst, weight, valid, dirty_v, touched_src,
+                  ell_row, ell_col, ell_nbr, ell_wv)
+        return UpdateBatch(*(torch.from_numpy(x).to(self.device) for x in fields))
+
+    # ------------------------------------------------------- unported surface
+    register_slot = _unported("register_slot", SLOT_POOL)
+    register_slots = _unported("register_slots", SLOT_POOL)
+    deregister_slot = _unported("deregister_slot", SLOT_POOL)
+    set_join_store = _unported("set_join_store", "the VDC slice of the port (ROADMAP Queue 1 item 3(e))")
+    set_drop_params = _unported("set_drop_params", "the dropping slice of the port (ROADMAP Queue 1 item 3(c))")
+    export_state = _unported("export_state", SLOT_POOL)
+    import_state = _unported("import_state", SLOT_POOL)
+
+    # ------------------------------------------------------------------- api
+    def answers(self) -> np.ndarray:
+        return answers(self.cfg, self.state).cpu().numpy()
+
+    def answers_row(self, slot: int) -> np.ndarray:
+        """One query slot's final vertex states. [V]"""
+        return self.state.cur[slot].cpu().numpy()
+
+    def nbytes(self) -> int:
+        return nbytes_accounted(self.cfg, self.state)

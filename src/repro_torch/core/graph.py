@@ -1,0 +1,363 @@
+"""Dynamic property graph: host-side mutable store + device-friendly views.
+
+The paper's graph model (§3.1): directed property graph, edge labels and
+weights, update batches ``[(u, v, label, weight, +/-)]``.  A GDBMS keeps the
+adjacency index on the host; the IFE compute consumes fixed-shape device
+arrays.  Edge capacity is preallocated so update batches never change array
+shapes, and deleted slots are marked invalid.
+
+Device layout is COO (``src``, ``dst``, ``w``, ``valid``) for the engine's
+scatter-reduce path; the CUDA ``ell_spmv`` kernel consumes the bucketed-ELL
+view produced by :meth:`GraphSnapshot.to_ell`.
+
+Numpy only.  Construction of :class:`DynamicGraph`, :meth:`GraphSnapshot.to_ell`
+and :class:`EllIndex` is vectorized (a real-size graph holds tens of millions
+of edges) and produces cell for cell what the one-edge-at-a-time loops of the
+reference produce: ELL rows fill in ascending live-slot order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Sequence
+
+import numpy as np
+
+# An update is (u, v, label, weight, +1|-1) as in the paper §3.1.
+Update = tuple[int, int, int, float, int]
+
+# A resolved op is (kind, slot, u, v, weight) where kind ∈ {"insert",
+# "update", "delete"}: the slot-level effect of one accepted update
+# ("update" = weight change in place; no-op deletions are filtered out).
+ResolvedOp = tuple[str, int, int, int, float]
+
+NO_LABEL = 0
+
+
+def _ell_cells(dst: np.ndarray, valid: np.ndarray, num_vertices: int):
+    """(live slots, their rows, their columns, in-degree) of the ELL fill.
+
+    Row ``t`` receives its live in-edges in ascending slot order, so an
+    edge's column is its rank among the live slots with the same ``dst``.
+    """
+    live = np.nonzero(valid)[0]
+    rows = dst[live].astype(np.int64)
+    indeg = np.bincount(rows, minlength=num_vertices)
+    order = np.argsort(rows, kind="stable")  # stable: slot order within a row
+    start = np.cumsum(indeg) - indeg
+    cols = np.empty(live.shape[0], np.int64)
+    cols[order] = np.arange(live.shape[0]) - start[rows[order]]
+    return live, rows, cols, indeg
+
+
+@dataclasses.dataclass
+class GraphSnapshot:
+    """Immutable fixed-shape device-friendly view of the graph."""
+
+    num_vertices: int
+    src: np.ndarray  # int32 [E_cap]
+    dst: np.ndarray  # int32 [E_cap]
+    weight: np.ndarray  # float32 [E_cap]
+    label: np.ndarray  # int32 [E_cap]
+    valid: np.ndarray  # bool [E_cap]
+    out_degree: np.ndarray  # int32 [V]
+    in_degree: np.ndarray  # int32 [V]
+
+    @property
+    def capacity(self) -> int:
+        return int(self.src.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.valid.sum())
+
+    def degrees_total(self) -> np.ndarray:
+        return self.out_degree + self.in_degree
+
+    def to_ell(
+        self, pad_to_multiple: int = 8, min_width: int = 0
+    ) -> tuple[np.ndarray, np.ndarray, int]:
+        """In-adjacency in ELL layout (for the ``ell_spmv`` kernel).
+
+        Returns ``(nbr, w, D)`` with ``nbr``/``w`` of shape ``[V, D]`` where
+        ``D`` is the max in-degree rounded up; padded slots have ``nbr == V``
+        (a sentinel row; callers pad the state vector with the reduce
+        identity at index V).  ``min_width`` keeps ``D`` fixed across update
+        batches.  (The reference's ``row_multiple`` row padding serves the
+        Pallas kernel's block contract; the CUDA kernel masks its ragged
+        edge and needs none.)
+        """
+        v = self.num_vertices
+        live, rows, cols, indeg = _ell_cells(self.dst, self.valid, v)
+        d = max(int(indeg.max()) if v else 0, min_width)
+        d = max(pad_to_multiple, ((d + pad_to_multiple - 1) // pad_to_multiple) * pad_to_multiple)
+        nbr = np.full((v, d), v, dtype=np.int32)
+        w = np.zeros((v, d), dtype=np.float32)
+        nbr[rows, cols] = self.src[live]
+        w[rows, cols] = self.weight[live]
+        return nbr, w, d
+
+
+class DynamicGraph:
+    """Host-side dynamic graph with slot-recycling edge storage."""
+
+    def __init__(
+        self,
+        num_vertices: int,
+        edges: Sequence[tuple] | np.ndarray,
+        *,
+        capacity: int | None = None,
+        weighted: bool = True,
+    ) -> None:
+        u, v, w, lbl = _edge_columns(edges, weighted)
+        n = int(u.shape[0])
+        cap = capacity if capacity is not None else max(16, int(n * 1.5))
+        if cap < n:
+            raise ValueError("capacity below initial edge count")
+        self.num_vertices = int(num_vertices)
+        self.weighted = weighted
+        self.src = np.full(cap, 0, dtype=np.int32)
+        self.dst = np.full(cap, 0, dtype=np.int32)
+        self.weight = np.zeros(cap, dtype=np.float32)
+        self.label = np.zeros(cap, dtype=np.int32)
+        self.valid = np.zeros(cap, dtype=bool)
+        self.src[:n], self.dst[:n] = u, v
+        self.weight[:n], self.label[:n] = w, lbl
+        self.valid[:n] = True
+        self.out_degree = np.bincount(u, minlength=self.num_vertices).astype(np.int32)
+        self.in_degree = np.bincount(v, minlength=self.num_vertices).astype(np.int32)
+        if self.out_degree.shape[0] != self.num_vertices or (
+            self.in_degree.shape[0] != self.num_vertices
+        ):
+            raise IndexError("edge endpoint outside [0, num_vertices)")
+        # a repeated (u, v, label) keeps its LAST slot, as sequential inserts would
+        self._slot: dict[tuple[int, int, int], int] = dict(
+            zip(zip(u.tolist(), v.tolist(), lbl.tolist()), range(n))
+        )
+        self._free: list[int] = list(range(cap - 1, n - 1, -1))
+        self.version = 0  # G_k
+
+    # ------------------------------------------------------------ durability
+    def state_dict(self) -> tuple[dict[str, np.ndarray], dict]:
+        """(arrays, meta) capturing the full mutable state.
+
+        The free list is saved as an *ordered* array: slot recycling order
+        decides which slot a replayed insert lands in.
+        """
+        arrays = {
+            "src": self.src.copy(),
+            "dst": self.dst.copy(),
+            "weight": self.weight.copy(),
+            "label": self.label.copy(),
+            "valid": self.valid.copy(),
+            "out_degree": self.out_degree.copy(),
+            "in_degree": self.in_degree.copy(),
+            "free": np.asarray(self._free, dtype=np.int64),
+        }
+        meta = {
+            "num_vertices": self.num_vertices,
+            "weighted": self.weighted,
+            "version": self.version,
+        }
+        return arrays, meta
+
+    @classmethod
+    def from_state(cls, meta: dict, arrays: dict) -> "DynamicGraph":
+        g = cls(
+            int(meta["num_vertices"]),
+            [],
+            capacity=int(arrays["src"].shape[0]),
+            weighted=bool(meta["weighted"]),
+        )
+        for name in ("src", "dst", "weight", "label", "valid",
+                     "out_degree", "in_degree"):
+            getattr(g, name)[:] = arrays[name]
+        g._free = [int(x) for x in arrays["free"]]
+        live = np.nonzero(g.valid)[0]
+        g._slot = dict(
+            zip(
+                zip(g.src[live].tolist(), g.dst[live].tolist(), g.label[live].tolist()),
+                live.tolist(),
+            )
+        )
+        g.version = int(meta["version"])
+        return g
+
+    # ------------------------------------------------------------------ api
+    @property
+    def num_edges(self) -> int:
+        return int(self.valid.sum())
+
+    @property
+    def capacity(self) -> int:
+        return int(self.src.shape[0])
+
+    def snapshot(self) -> GraphSnapshot:
+        return GraphSnapshot(
+            num_vertices=self.num_vertices,
+            src=self.src.copy(),
+            dst=self.dst.copy(),
+            weight=self.weight.copy(),
+            label=self.label.copy(),
+            valid=self.valid.copy(),
+            out_degree=self.out_degree.copy(),
+            in_degree=self.in_degree.copy(),
+        )
+
+    def apply_batch(self, updates: Iterable[Update]) -> list[tuple[int, int]]:
+        """Apply one δE batch; returns the touched (src, dst) endpoints.
+
+        Insertions of an existing (u, v, label) update the weight in place.
+        Endpoints — not slots — are returned because a later insert in the
+        same batch may recycle a freed slot.
+        """
+        return [(u, v) for (_kind, _slot, u, v, _w) in self.apply_batch_resolved(updates)]
+
+    def apply_batch_resolved(self, updates: Iterable[Update]) -> list[ResolvedOp]:
+        """Apply one δE batch, returning the slot-level effect of every
+        accepted update (the device mirror the batched engine step scatters).
+        """
+        ops: list[ResolvedOp] = []
+        for (u, v, lbl, w, sign) in updates:
+            u, v, lbl = int(u), int(v), int(lbl)
+            key = (u, v, lbl)
+            if sign > 0:
+                if key in self._slot:
+                    i = self._slot[key]
+                    self.weight[i] = float(w)
+                    ops.append(("update", i, u, v, float(w)))
+                else:
+                    if not self._free:
+                        raise MemoryError("edge capacity exhausted")
+                    i = self._free.pop()
+                    self.src[i], self.dst[i] = u, v
+                    self.weight[i], self.label[i] = float(w), lbl
+                    self.valid[i] = True
+                    self._slot[key] = i
+                    self.out_degree[u] += 1
+                    self.in_degree[v] += 1
+                    ops.append(("insert", i, u, v, float(w)))
+            else:
+                if key not in self._slot:
+                    continue  # deleting a non-existent edge is a no-op
+                i = self._slot.pop(key)
+                self.valid[i] = False
+                self._free.append(i)
+                self.out_degree[u] -= 1
+                self.in_degree[v] -= 1
+                ops.append(("delete", i, u, v, float(w)))
+        self.version += 1
+        return ops
+
+    def degree_percentile(self, pct: float) -> float:
+        """Degree threshold at the given percentile (paper: τ_max = 80th)."""
+        deg = self.degrees_total()
+        return float(np.percentile(deg[deg > 0], pct)) if (deg > 0).any() else 0.0
+
+    def degrees_total(self) -> np.ndarray:
+        return self.out_degree + self.in_degree
+
+
+def _edge_columns(
+    edges: Sequence[tuple] | np.ndarray, weighted: bool
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(u, v, weight, label) columns of an edge list.
+
+    ``edges`` is a sequence of ``(u, v[, w[, label]])`` tuples or an
+    ``[n, 2..4]`` array with those columns.  Weights are 1.0 when the graph
+    is unweighted or the weight column is absent; labels default to
+    :data:`NO_LABEL`.
+    """
+    if isinstance(edges, np.ndarray):
+        n = edges.shape[0]
+        ncol = edges.shape[1] if edges.ndim == 2 else 0
+        u = edges[:, 0].astype(np.int64) if n else np.zeros(0, np.int64)
+        v = edges[:, 1].astype(np.int64) if n else np.zeros(0, np.int64)
+        w = (
+            edges[:, 2].astype(np.float64)
+            if (weighted and ncol > 2)
+            else np.ones(n, np.float64)
+        )
+        lbl = edges[:, 3].astype(np.int64) if ncol > 3 else np.full(n, NO_LABEL, np.int64)
+        return u, v, w, lbl
+    edges = list(edges)
+    u = np.asarray([int(e[0]) for e in edges], np.int64)
+    v = np.asarray([int(e[1]) for e in edges], np.int64)
+    w = np.asarray(
+        [float(e[2]) if (weighted and len(e) > 2) else 1.0 for e in edges], np.float64
+    )
+    lbl = np.asarray([int(e[3]) if len(e) > 3 else NO_LABEL for e in edges], np.int64)
+    return u, v, w, lbl
+
+
+@dataclasses.dataclass
+class EllWrite:
+    """One ELL cell assignment: ``nbr[row, col] = nbr_val; w[row, col] = w_val``."""
+
+    row: int
+    col: int
+    nbr_val: int
+    w_val: float
+
+
+class EllOverflow(Exception):
+    """A row ran out of ELL columns — the caller must rebuild at a wider D."""
+
+
+class EllIndex:
+    """Host mirror of the device ELL buffers (``GraphSnapshot.to_ell``).
+
+    Tracks the (row = dst, col) cell of every live edge slot plus per-row free
+    columns, so a δE batch becomes O(B) scatter writes on the device instead
+    of an O(V·D) host rebuild + transfer.  A freshly built index agrees cell
+    for cell with ``to_ell`` output.  ``row_of``/``col_of`` are indexed by
+    edge slot; ``-1`` marks a slot without a live cell.
+    """
+
+    def __init__(self, snap: GraphSnapshot, width: int) -> None:
+        self.v = snap.num_vertices
+        self.width = int(width)
+        live, rows, cols, indeg = _ell_cells(snap.dst, snap.valid, self.v)
+        over = cols >= self.width
+        if over.any():
+            # the first slot (in fill order) that finds its row full
+            t = int(rows[np.argmax(over)])
+            raise EllOverflow(f"in-degree of vertex {t} exceeds width {self.width}")
+        self.row_of = np.full(snap.capacity, -1, np.int64)
+        self.col_of = np.full(snap.capacity, -1, np.int64)
+        self.row_of[live], self.col_of[live] = rows, cols
+        self.fill = indeg.astype(np.int64)
+        self.free: dict[int, list[int]] = {}
+
+    def _alloc(self, row: int) -> int:
+        cols = self.free.get(row)
+        if cols:
+            return cols.pop()
+        if self.fill[row] >= self.width:
+            raise EllOverflow(f"in-degree of vertex {row} exceeds width {self.width}")
+        col = int(self.fill[row])
+        self.fill[row] += 1
+        return col
+
+    def writes_for(self, ops: Sequence[ResolvedOp]) -> list[EllWrite]:
+        """Translate resolved slot ops into coalesced ELL cell writes.
+
+        Raises :class:`EllOverflow` when an insert exceeds the fixed width;
+        the index is then stale and must be rebuilt from the (already
+        updated) host graph at a larger width.
+        """
+        writes: dict[tuple[int, int], EllWrite] = {}
+        for (kind, slot, u, v, w) in ops:
+            if kind == "delete":
+                row, col = int(self.row_of[slot]), int(self.col_of[slot])
+                self.row_of[slot] = self.col_of[slot] = -1
+                self.free.setdefault(row, []).append(col)
+                writes[(row, col)] = EllWrite(row, col, self.v, 0.0)
+            elif kind == "insert":
+                col = self._alloc(v)
+                self.row_of[slot], self.col_of[slot] = v, col
+                writes[(v, col)] = EllWrite(v, col, u, float(w))
+            else:  # weight update in place
+                row, col = int(self.row_of[slot]), int(self.col_of[slot])
+                writes[(row, col)] = EllWrite(row, col, u, float(w))
+        return list(writes.values())
