@@ -8,9 +8,13 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 1. ``env``     torch/CUDA versions, the card, its power limit.
 2. ``build``   every CUDA source under ``src/repro_torch/kernels/csrc/``
                compiled by ``nvcc`` (one process each, all started together).
-3. ``kernel_small``  ``ell_spmv``'s CUDA kernel against its plain PyTorch
-               version for the four semirings at ragged small shapes
-               (min family bit-exact, ``pr_sum`` at rtol 1e-6).
+3. ``kernel_small``  each kernel against its plain PyTorch version at ragged
+               small shapes: ``ell_spmv`` for the four semirings (min family
+               bit-exact, ``pr_sum`` at rtol 1e-6); ``fused_sweep`` for four
+               semirings x three drop modes on random stores with full rows,
+               padding and repeated iterations (every output bit-equal;
+               ``pr_sum``'s plain version takes the ELL kernel's expand,
+               which is the same device code); ``bloom_query`` bit-equal.
 4. ``main``    the slice at real size: 8 SSSP queries
                (``repro_torch.core.queries.sssp``, ``backend="ell"``,
                ``max_iters=48``, ``batch_capacity=32``, S=16) on a uniform
@@ -21,11 +25,27 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                are zeroed just before and read just after.  The answers must
                equal SCRATCH on the final graph bit for bit.  One more chunk
                runs under ``torch.profiler`` for the device-busy share.
-5. ``kernel_real``  the kernel against its plain version at the main path's
-               shapes (its own ELL arrays), timed with CUDA events, beside its
-               bound and, for ``pr_sum``, one ``torch.sparse.mm`` over the
-               same CSR.
-6. ``other_semirings``  K-hop (k=6) and PageRank (10 rounds) at V = 2**16
+5. ``main_fused``  (one line per run) the same graph, sources and stream on
+               ``backend="fused"`` with no dropping, Det-Drop and Prob-Drop
+               (``benchmarks/common.py``'s ``DROP_DEGREE`` policy; 2**26
+               Bloom bits a query): answers equal SCRATCH, one
+               ``fused_sweep`` launch per sweep iteration and no
+               ``ell_spmv``, ``none`` leaf-equal to the ``main`` engine;
+               throughput, latency, accounted bytes split into differences
+               and DroppedVT, device memory, one profiled chunk.
+6. ``parity_fused``  ``ell`` against ``fused`` at V = 2**16 for the four
+               semirings x three drop modes: every state leaf and stat.
+7. ``kernel_real``  each kernel against its plain version at the main
+               path's shapes, timed with CUDA events, beside its bound:
+               ``ell_spmv`` on the ``main`` engine's ELL arrays (for
+               ``pr_sum`` also one ``torch.sparse.mm`` over the same CSR);
+               ``fused_sweep`` on one captured call of each ``main_fused``
+               run (the function's bound, counted on that call's data, and
+               beside it the floor of this design's out-of-place stores);
+               ``bloom_query`` on the prob run's filter, packed, also
+               held against ``core.bloom.query`` for every (v, i) probe of
+               one query.
+8. ``other_semirings``  K-hop (k=6) and PageRank (10 rounds) at V = 2**16
                with short batched streams, against SCRATCH.
 
 Then the ``kernels`` line, the card's ``nvidia-smi`` name and power limit,
@@ -45,7 +65,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-OUT_DIR = ROOT / "build" / "chip_smoke"  # the profiled chunk's Chrome trace
+OUT_DIR = ROOT / "build" / "chip_smoke"  # the profiled chunks' Chrome traces
 
 # SNAP cit-Patents: |V| and |E|
 PATENTS_V = 3_774_768
@@ -138,6 +158,107 @@ def ell_inputs(rng, q, v, d, semiring, device):
     return [torch.from_numpy(x).to(device) for x in (states, nbr, w, carry)]
 
 
+IMAX = 2**31 - 1
+
+
+def random_store(rng, q, v, s, max_iter):
+    """Sorted IMAX-padded store rows: about 30% full, the rest ragged, a few
+    with a repeated iteration (the store ops take the first match), values
+    small integers so that candidates tie with stored points."""
+    iters = np.full((q, v, s), IMAX, np.int64)
+    count = np.where(rng.random((q, v)) < 0.3, s, rng.integers(0, s + 1, size=(q, v)))
+    pts = np.sort(rng.random((q, v, max(max_iter, s))).argsort(-1)[..., :s] + 1, axis=-1)
+    dup = rng.random((q, v)) < 0.05
+    pts[dup, 1:] = pts[dup, :-1]  # [a, a, b, ...]: still sorted
+    live = np.arange(s)[None, None, :] < count[..., None]
+    iters[live] = pts[live]
+    vals = np.where(live, rng.integers(0, 7, size=(q, v, s)), 0).astype(np.float32)
+    return iters.astype(np.int32), vals, count.astype(np.int32)
+
+
+def fused_inputs(rng, q, v, d, s, semiring, drop_mode, device, *, s_det=None, m_bits=1 << 10):
+    """Random operands of one ``fused_sweep`` call, as (args, kwargs)."""
+    import torch
+
+    from repro_torch.core import diffstore as ds
+    from repro_torch.core import dropping as dr
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    i = 5
+    nbr = rng.integers(0, v + 1, size=(v, d)).astype(np.int32)
+    w = rng.integers(1, 4, size=(v, d)).astype(np.float32)
+    if semiring == "pr_sum":
+        states = np.concatenate([rng.random((q, v), np.float32), np.zeros((q, 1), np.float32)], 1)
+        cur = rng.random((q, v)).astype(np.float32)
+        kcarry = np.full((q, v), 0.15, np.float32)
+    else:
+        states = np.concatenate(
+            [rng.integers(0, 6, size=(q, v)).astype(np.float32), np.full((q, 1), np.inf, np.float32)], 1
+        )
+        cur = rng.integers(0, 7, size=(q, v)).astype(np.float32)
+        kcarry = cur
+    max_iter = max(12, s + 4)
+    args = (
+        i,
+        t(rng.random((q, v)) < 0.5),  # sched
+        t(np.r_[True, rng.random(q - 1) < 0.7]),  # active
+        t(cur),
+        t(rng.integers(0, 7, size=(q, v)).astype(np.float32)),  # cur_old
+        t(rng.random((q, v)) < 0.2),  # stale_old
+        ds.DiffStore(*map(t, random_store(rng, q, v, s, max_iter))),
+        ds.DiffStore(*map(t, random_store(rng, q, v, s, max_iter))),
+    )
+    hop_cap = 4.0 if semiring == "min_hop" else float("inf")
+    kw = dict(states=t(states), nbr=t(nbr), w=t(w), kcarry=t(kcarry), semiring=semiring,
+              hop_cap=hop_cap, drop_mode=drop_mode)
+    if drop_mode != "none":
+        seeds = rng.integers(0, 2**32, size=q)
+        seeds[0] = 2**32 - 1
+        kw["degree"] = t(rng.integers(0, 30, size=v).astype(np.float32))
+        kw["params"] = dr.DropParams(
+            p=t(rng.uniform(0.2, 0.8, size=q).astype(np.float32)),
+            tau_min=t(rng.integers(2, 6, size=q).astype(np.float32)),
+            tau_max=t(np.where(rng.random(q) < 0.5, np.inf, rng.integers(10, 26, size=q)).astype(np.float32)),
+            degree_sel=t(rng.random(q) < 0.5),
+            seed=t(seeds.astype(np.int64)),
+        )
+    if drop_mode == "det":
+        it, _, co = random_store(rng, q, v, s_det or min(32, 2 * s), max_iter)
+        kw["det"] = ds.DiffStore(t(it), torch.zeros(it.shape, dtype=torch.float32, device=device), t(co))
+    if drop_mode == "prob":
+        kw["bloom_bits"] = t(rng.random((q, m_bits)) < 0.5)
+        kw["bloom_hashes"] = 3
+    return args, kw
+
+
+def max_abs_diff(got, want) -> float:
+    """Largest ``|got - want|`` over the cells where the two differ (0.0 when
+    every cell is equal, infinities included); a bool counts as 0 or 1."""
+    ne = got != want
+    if not bool(ne.any()):
+        return 0.0
+    return float((got[ne].double() - want[ne].double()).abs().max())
+
+
+def same_fused(got, want) -> float:
+    """Raise unless two ``FusedOut`` agree in every output, bit for bit;
+    returns the largest absolute difference over all outputs."""
+    err = 0.0
+    for name, g, w in zip(got._fields, got, want):
+        if (g is None) != (w is None):
+            raise AssertionError(f"fused_sweep output {name}: present in one version only")
+        if g is None:
+            continue
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"fused_sweep output {name}: {g.dtype}{list(g.shape)} against "
+                                 f"the plain version's {w.dtype}{list(w.shape)}")
+        err = max(err, max_abs_diff(g, w))
+        if err != 0.0:
+            bad = int((g != w).sum())
+            raise AssertionError(f"fused_sweep output {name} differs from the plain version ({bad} cells)")
+    return err
+
+
 def compare(semiring, got, want) -> float:
     """Raise unless the kernel agrees with its plain version; returns the
     max abs difference (over finite cells)."""
@@ -179,18 +300,63 @@ def ell_bound_ms(q: int, v: int, d: int, semiring: str) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
 
 
-def kernel_small(device) -> float:
-    from repro_torch.kernels import ell_spmv as K
+def kernel_small(device) -> dict:
+    """Every kernel against its plain version at ragged small shapes."""
+    import torch
+
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
 
     rng = np.random.default_rng(SEED)
-    err = 0.0
-    for semiring in K.SEMIRINGS:
+    err1 = 0.0
+    for semiring in K1.SEMIRINGS:
         cap = 4.0 if semiring == "min_hop" else float("inf")
         for q, v, d in [(1, 16, 4), (3, 100, 8), (2, 257, 16), (4, 128, 32)]:
             args = ell_inputs(rng, q, v, d, semiring, device)
-            got = K.ell_spmv(*args, semiring=semiring, hop_cap=cap)
-            err = max(err, compare(semiring, got, K.ell_spmv_ref(*args, semiring=semiring, hop_cap=cap)))
-    return err
+            got = K1.ell_spmv(*args, semiring=semiring, hop_cap=cap)
+            err1 = max(err1, compare(semiring, got, K1.ell_spmv_ref(*args, semiring=semiring, hop_cap=cap)))
+
+    # K2: all outputs bit-equal; pr_sum's plain version takes the ELL
+    # kernel's expand (the same device code), and that expand is held
+    # against the plain sum at rtol 1e-6
+    cases2, err2, expand_err = 0, 0.0, 0.0
+    for q, v, d, s in [(1, 16, 4, 4), (3, 100, 8, 16), (2, 257, 16, 16)]:
+        for semiring in K1.SEMIRINGS:
+            for mode in K2.DROP_MODES:
+                args, kw = fused_inputs(rng, q, v, d, s, semiring, mode, device)
+                got = K2.fused_sweep(*args, **kw)
+                if semiring == "pr_sum":
+                    ops = [kw[k] for k in ("states", "nbr", "w", "kcarry")]
+                    expand_err = max(expand_err, compare(
+                        semiring, K1.ell_spmv(*ops, semiring=semiring),
+                        K1.ell_spmv_ref(*ops, semiring=semiring)))
+                    want = K2.fused_sweep_ref(*args, **kw, expand=K1.ell_spmv)
+                else:
+                    want = K2.fused_sweep_ref(*args, **kw)
+                err2 = max(err2, same_fused(got, want))
+                cases2 += 1
+
+    cases3, err3 = 0, 0.0
+    for q, n, mbits, k in [(1, 64, 1 << 10, 2), (3, 500, 1 << 12, 4), (2, 1024, 1 << 14, 6)]:
+        t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+        words = K3.pack_bits(t(rng.random((q, mbits)) < 0.4))
+        v = t(rng.integers(0, 2**31 - 1, size=(q, n)).astype(np.int32))
+        it = t(rng.integers(0, 64, size=(q, n)).astype(np.int32))
+        salt = torch.arange(q, dtype=torch.int32, device=device)
+        got = K3.bloom_query(words, v, it, salt, num_hashes=k)
+        want = K3.bloom_query_ref(words, v, it, salt, num_hashes=k)
+        err3 = max(err3, max_abs_diff(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError("bloom_query differs from its plain version")
+        cases3 += 1
+    torch.cuda.synchronize()
+    return {
+        "ell_spmv": {"max_abs_err": err1, "semirings": list(K1.SEMIRINGS)},
+        "fused_sweep": {"cases": cases2, "bit_equal": True, "max_abs_err": err2,
+                        "pr_sum_expand_max_abs_err": expand_err},
+        "bloom_query": {"cases": cases3, "bit_equal": True, "max_abs_err": err3},
+    }
 
 
 def kernel_real(eng, rng) -> dict:
@@ -265,16 +431,24 @@ def sparse_mm_yardstick(states, nbr, w, carry, kernel_out):
 
 
 # --------------------------------------------------------------------------- engine phases
-def main_path(device, num_vertices: int, num_edges: int, *, num_updates: int = 256,
-              chunk: int = 32, num_queries: int = 8, profile_dir: Path | None = None) -> dict:
-    """Build the graph and stream, drive ``queries.sssp`` through
-    ``apply_updates_batched``, and hold the answers against SCRATCH."""
-    import torch
+def copy_graph(graph):
+    """An independent copy of a host ``DynamicGraph`` (arrays copied, the
+    slot dictionary shallow-copied: its keys and values are immutable),
+    far cheaper than rebuilding one at cit-Patents size."""
+    import copy
 
-    from repro_torch.core import queries as tq
+    out = copy.copy(graph)
+    for name in ("src", "dst", "weight", "label", "valid", "out_degree", "in_degree"):
+        setattr(out, name, getattr(graph, name).copy())
+    out._slot = dict(graph._slot)
+    out._free = list(graph._free)
+    return out
+
+
+def make_data(num_vertices: int, num_edges: int, num_updates: int, chunk: int, num_queries: int):
+    """The uniform graph, its update stream (``num_updates`` + one more chunk)
+    and the SSSP sources, from the seed."""
     from repro_torch.core.graph import DynamicGraph
-    from repro_torch.core.scratch import scratch_like
-    from repro_torch.kernels import ell_spmv as K
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -282,47 +456,92 @@ def main_path(device, num_vertices: int, num_edges: int, *, num_updates: int = 2
     initial, stream = split_and_stream(edges, num_updates + chunk, 0.2, rng)
     graph = DynamicGraph(num_vertices, initial)
     sources = pick_sources(graph, num_queries, rng)
-    host_setup_s = time.perf_counter() - t0
+    return graph, stream, sources, time.perf_counter() - t0
 
-    cuda = torch.device(device).type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    K.reset_launches()  # ---- the main path starts here
+
+def nbytes_split(eng) -> tuple[int, int]:
+    """(difference-store bytes, DroppedVT bytes) of ``nbytes()``."""
+    diff = int(eng.state.dstore.count.sum()) * 8
+    return diff, eng.nbytes() - diff
+
+
+class Capture:
+    """Wraps ``fused_sweep`` to keep the operands of one call (the first at
+    iteration 2, else the first) for timing the kernel at the main path's
+    shapes; it calls the kernel unchanged."""
+
+    def __init__(self, fn):
+        self.fn, self.call = fn, None
+
+    def __call__(self, i, *args, **kw):
+        if self.call is None or (i == 2 and self.call[0][0] != 2):
+            self.call = ((i, *args), kw)
+        return self.fn(i, *args, **kw)
+
+
+def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int, chunk: int,
+               counters, drop=None, profile_path: Path | None = None, capture: Capture | None = None):
+    """Drive ``queries.sssp`` on ``graph`` (mutated) through
+    ``apply_updates_batched`` and hold the answers against SCRATCH.
+
+    The launch counts of the kernel modules in ``counters`` are zeroed just
+    before the engine is built and read just after the timed chunks; one
+    more chunk then runs under ``torch.profiler``.
+    """
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.core import queries as tq
+    from repro_torch.core.scratch import scratch_like
+
+    torch.cuda.reset_peak_memory_stats()
+    for K in counters:
+        K.reset_launches()  # ---- the main path starts here
     t0 = time.perf_counter()
-    eng = tq.sssp(graph, sources, backend="ell", max_iters=48, batch_capacity=chunk,
+    eng = tq.sssp(graph, sources, backend=backend, drop=drop, max_iters=48, batch_capacity=chunk,
                   store_capacity=16, device=device)
     init_s = time.perf_counter() - t0
     init_iters = int(eng.last_stats.iters_run)
-    lat, iters, peak_nbytes = [], [], eng.nbytes()
-    for lo in range(0, num_updates, chunk):
+    totals = {k: int(getattr(eng.last_stats, k)) for k in ("repairs", "dropped", "det_overflow")}
+    lat, iters = [], []
+    peak = list(nbytes_split(eng)) + [eng.nbytes()]
+    n_chunks = num_updates // chunk
+    for c, lo in enumerate(range(0, num_updates, chunk)):
+        if capture is not None and c == n_chunks - 1:
+            E.fused_sweep = capture  # the last timed chunk keeps one call's operands
         t0 = time.perf_counter()
-        st = eng.apply_updates_batched(stream[lo : lo + chunk])
+        try:
+            st = eng.apply_updates_batched(stream[lo : lo + chunk])
+        finally:
+            if capture is not None:
+                E.fused_sweep = capture.fn
         lat.append(time.perf_counter() - t0)
         iters.append(int(st.iters_run))
-        peak_nbytes = max(peak_nbytes, eng.nbytes())
-    launches = K.LAUNCHES  # ---- and ends here
-    if cuda and launches == 0:
-        raise AssertionError("the main path launched no ell_spmv kernel")
+        for k in totals:
+            totals[k] += int(getattr(st, k))
+        peak = [max(a, b) for a, b in zip(peak, list(nbytes_split(eng)) + [eng.nbytes()])]
+    launches = {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in counters}  # ---- and ends here
 
     traced = {}
-    if profile_dir is not None:
+    if profile_path is not None:
         from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-        with profile(activities=acts) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             st = eng.apply_updates_batched(stream[num_updates:])
             wall = time.perf_counter() - t0
-        profile_dir.mkdir(parents=True, exist_ok=True)
-        traced = device_busy(prof, profile_dir / "chip_smoke_main_chunk_trace.json")
+        profile_path.parent.mkdir(parents=True, exist_ok=True)
+        traced = device_busy(prof, profile_path)
         traced.update(chunk_wall_ms=wall * 1e3, sweep_iters=int(st.iters_run))
         traced["device_idle_share"] = 1.0 - traced["device_busy_ms"] / traced["chunk_wall_ms"]
     else:
-        eng.apply_updates_batched(stream[num_updates:])
-    peak_nbytes = max(peak_nbytes, eng.nbytes())
+        st = eng.apply_updates_batched(stream[num_updates:])
+    for k in totals:
+        totals[k] += int(getattr(st, k))
+    peak = [max(a, b) for a, b in zip(peak, list(nbytes_split(eng)) + [eng.nbytes()])]
 
     ans = eng.answers()
-    if ans.shape != (num_queries, num_vertices) or np.isnan(ans).any():
+    if ans.shape != (len(sources), graph.num_vertices) or np.isnan(ans).any():
         raise AssertionError(f"bad answers: shape {ans.shape}")
     if not all(ans[q, s] == 0.0 for q, s in enumerate(sources)):
         raise AssertionError("a source is not at distance 0")
@@ -330,13 +549,9 @@ def main_path(device, num_vertices: int, num_edges: int, *, num_updates: int = 2
     np.testing.assert_array_equal(ans, sc.answers())
 
     timed = lat[1:]  # chunk 0 is warm-up
-    out = {
-        "num_vertices": num_vertices,
-        "num_edges_initial": int(initial.shape[0]),
-        "queries": num_queries,
-        "chunk": chunk,
-        "ell_width": eng.g.ell_width,
-        "host_setup_s": host_setup_s,
+    return {
+        "backend": backend,
+        "drop": None if drop is None else dataclass_dict(drop),
         "engine_init_s": init_s,
         "init_sweep_iters": init_iters,
         "updates_per_s": chunk * len(timed) / sum(timed),
@@ -344,15 +559,284 @@ def main_path(device, num_vertices: int, num_edges: int, *, num_updates: int = 2
         "p50_chunk_ms": float(np.percentile(timed, 50)) * 1e3,
         "p99_chunk_ms": float(np.percentile(timed, 99)) * 1e3,
         "sweep_iters_per_chunk": iters,
-        "peak_nbytes": peak_nbytes,
-        "ell_launches": launches,
-        "ell_launches_per_sweep_iter": launches / (init_iters + sum(iters)),
+        "peak_nbytes": peak[2],
+        "peak_diff_nbytes": peak[0],
+        "peak_droppedvt_nbytes": peak[1],
+        **totals,
+        "launches": launches,
+        "launches_per_sweep_iter": {k: n / (init_iters + sum(iters)) for k, n in launches.items()},
         "equals_scratch": True,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "traced_chunk": traced,
+    }, eng
+
+
+def dataclass_dict(x) -> dict:
+    import dataclasses
+
+    return {k: (None if v == float("inf") else v) for k, v in dataclasses.asdict(x).items()}
+
+
+def state_leaves(state) -> dict:
+    """Every tensor leaf of an engine state, by name."""
+    out = {f"dstore/{k}": getattr(state.dstore, k) for k in ("iters", "vals", "count")}
+    out.update(init=state.init, cur=state.cur, repair_counts=state.repair_counts, active=state.active,
+               det_overflow=state.drop.det_overflow, max_iter=state.drop.max_iter)
+    if state.drop.det is not None:
+        out.update({f"det/{k}": getattr(state.drop.det, k) for k in ("iters", "vals", "count")})
+    if state.drop.flt is not None:
+        out["bloom/bits"] = state.drop.flt.bits
+    if state.drop.params is not None:
+        out.update({f"params/{k}": getattr(state.drop.params, k) for k in state.drop.params._fields})
+    return out
+
+
+def same_leaves(got: dict, want: dict, what: str) -> None:
+    import torch
+
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: leaves {sorted(got)} != {sorted(want)}")
+    for k in want:
+        g, w = got[k], want[k].to(got[k].device)
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{what}: leaf {k} differs")
+
+
+def drop_policy(mode: str, bloom_bits: int):
+    """``benchmarks/common.py`` DROP_DEGREE (a point of fig 7's p grid) in
+    ``mode``; None for no dropping."""
+    from repro_torch.core import dropping as dr
+
+    if mode == "none":
+        return None
+    return dr.DropConfig(mode=mode, selection="degree", p=0.6, tau_min=2.0, tau_max=24.0,
+                         det_capacity=32, bloom_bits=bloom_bits, bloom_hashes=4, seed=1)
+
+
+def fused_bounds_ms(args, kw) -> tuple[float, float]:
+    """Least time for one ``fused_sweep`` call at 3.35 TB/s, counted two
+    ways; the few integer and float operations per byte never bind.
+
+    The function's bound reads each input once and writes each output once
+    as this call's data needs them: the iterations of every store row (the
+    probes at ``i``), a value only where its column matches ``i``, and the
+    values and counts of the scheduled rows, which alone the upsert and the
+    removal change and alone need writing back (Det rows likewise; of the
+    Bloom rows one byte per probe).  The out-of-place floor is this design's
+    own: the kernel reads and writes every store row each call, because the
+    frozen pre-update store is also the first iteration's working store.
+    Returns (function bound, out-of-place floor) in ms.
+    """
+    from repro_torch.core import diffstore as ds
+
+    i, sched, active, cur, cur_old, stale_old, dstore, old = args
+    q, v = sched.shape
+    qv, s, so, d = q * v, dstore.capacity, old.capacity, kw["nbr"].shape[1]
+    mode = kw["drop_mode"]
+    n_sched = int(sched.sum())
+    n_cur = int(ds.has_at(dstore, i).sum())
+    n_old = int(ds.has_at(old, i).sum())
+    uses_w = kw["semiring"] in ("min_plus", "pr_sum")
+    # states, adjacency, active, cur + cur_old (+ kcarry), sched + stale_old
+    rd = q * (v + 1) * 4 + v * d * 4 * (2 if uses_w else 1) + q
+    rd += qv * 4 * (2 if kw["kcarry"].data_ptr() == cur.data_ptr() else 3) + qv * 2
+    wr = qv * (4 + 4 + 4 + 7)  # cur, old, evicted_iter, seven masks
+    if mode != "none":
+        rd += v * 4 + q * 17  # degree, params
+    if mode == "prob":
+        rd += min(q * kw["bloom_bits"].shape[1], qv * kw["bloom_hashes"])
+    fn_rd = rd + qv * s * 4 + n_cur * 4 + n_sched * (s * 4 + 4) + qv * so * 4 + n_old * 4
+    fn_wr = wr + n_sched * (s * 8 + 4)
+    oop_rd = rd + qv * (s * 8 + 4) + qv * (so * 4 + 4)
+    oop_wr = wr + qv * (s * 8 + 4)
+    if mode == "det":
+        sd = kw["det"].capacity
+        fn_rd += qv * sd * 4 + n_sched * 4
+        fn_wr += n_sched * (sd + 1) * 4 + q * 8
+        oop_rd += qv * (sd + 1) * 4
+        oop_wr += qv * (sd + 1) * 4 + q * 8
+    return (fn_rd + fn_wr) / HBM_BYTES_PER_S * 1e3, (oop_rd + oop_wr) / HBM_BYTES_PER_S * 1e3
+
+
+def fused_real(capture: Capture) -> dict:
+    """K2 at the main path's shapes: the operands of one captured call,
+    kernel against plain version (bit-equal), timed."""
+    import torch
+
+    from repro_torch.kernels import fused_sweep as K2
+
+    args, kw = capture.call
+    call = lambda: K2.fused_sweep(*args, **kw)  # noqa: E731
+    plain = lambda: K2.fused_sweep_ref(*args, **kw)  # noqa: E731
+    # the kernel's outputs wait on the host while the plain version, whose
+    # temporaries take tens of GB at this size, runs
+    got = K2.FusedOut(*(None if x is None else x.cpu() for x in call()))
+    torch.cuda.empty_cache()
+    want = plain()
+    err = same_fused(K2.FusedOut(*(None if x is None else x.to(w.device) for x, w in zip(got, want))), want)
+    del got, want
+    torch.cuda.empty_cache()
+    bound, floor = fused_bounds_ms(args, kw)
+    out = {
+        "i": args[0],
+        "scheduled": int(args[1].sum()),
+        "max_abs_err": err,
+        "ms": time_ms(call),
+        "plain_ms": time_ms(plain, reps=3),
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "out_of_place_floor_ms": floor,
+        "library_ms": None,
     }
-    if cuda:
-        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    return out, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def bloom_real(eng) -> dict:
+    """K3 on the prob run's filter, packed: every (v, i <= max_iter) probe
+    of query 0 against ``core.bloom.query``, then timed over all queries."""
+    import torch
+
+    from repro_torch.core import bloom as bloom_lib
+    from repro_torch.kernels import bloom as K3
+
+    flt = eng.state.drop.flt
+    q, m = flt.bits.shape
+    v = eng.cfg.num_vertices
+    words = K3.pack_bits(flt.bits)
+    max_iter = int(eng.state.drop.max_iter)
+    dev = flt.bits.device
+    v_ids = torch.arange(v, dtype=torch.int32, device=dev)[None, :]
+    row0 = bloom_lib.BloomFilter(flt.bits[:1], flt.num_hashes)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    hits, lib_err = 0, 0.0
+    for i in range(max_iter + 1):
+        got = K3.bloom_query(words[:1], v_ids, torch.full_like(v_ids, i), zero, num_hashes=flt.num_hashes)
+        want = bloom_lib.query(row0, v_ids, i, salt=0)
+        lib_err = max(lib_err, max_abs_diff(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"bloom_query differs from core.bloom.query at i={i}")
+        hits += int(got.sum())
+    keys_v = v_ids.expand(q, v).contiguous()
+    keys_i = torch.full((q, v), 2, dtype=torch.int32, device=dev)
+    salt = torch.arange(q, dtype=torch.int32, device=dev)
+    call = lambda: K3.bloom_query(words, keys_v, keys_i, salt, num_hashes=flt.num_hashes)  # noqa: E731
+    plain = lambda: K3.bloom_query_ref(words, keys_v, keys_i, salt, num_hashes=flt.num_hashes)  # noqa: E731
+    got, want = call(), plain()
+    err = max_abs_diff(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError("bloom_query differs from its plain version at the real size")
+    del got, want
+    nbytes = q * v * 9 + q * 4 + min(q * m // 8, q * v * flt.num_hashes * 4)
+    return {
+        "num_bits": m,
+        "num_hashes": flt.num_hashes,
+        "fill_fraction": [float(x) for x in bloom_lib.fill_fraction(flt)],
+        "checked_probes_query0": (max_iter + 1) * v,
+        "positives_query0": hits,
+        "core_query_max_abs_err": lib_err,
+        "max_abs_err": err,
+        "ms": time_ms(call),
+        "plain_ms": time_ms(plain, reps=5),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
+               chunk: int) -> tuple[dict, dict]:
+    """The slice at full width: ``backend="fused"`` with no dropping,
+    Det-Drop and Prob-Drop on copies of the main path's graph and stream.
+    Prints one ``main_fused`` line per run."""
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
+
+    runs, real = {}, {}
+    for mode in ("none", "det", "prob"):
+        t0 = time.perf_counter()
+        graph = copy_graph(graph0)
+        copy_s = time.perf_counter() - t0
+        capture = Capture(E.fused_sweep)
+        out, eng = run_stream(
+            graph, sources, stream, device=device, backend="fused", drop=drop_policy(mode, 1 << 26),
+            num_updates=num_updates, chunk=chunk, counters=(K1, K2, K3), capture=capture,
+            profile_path=OUT_DIR / f"chip_smoke_fused_{mode}_chunk_trace.json",
+        )
+        out["graph_copy_s"] = copy_s
+        iters_run = out["init_sweep_iters"] + sum(out["sweep_iters_per_chunk"])
+        if out["launches"]["fused_sweep"] != iters_run:
+            raise AssertionError(f"{mode}: {out['launches']['fused_sweep']} fused_sweep launches "
+                                 f"for {iters_run} sweep iterations")
+        if out["launches"]["ell_spmv"] != 0:
+            raise AssertionError(f"{mode}: the fused path launched ell_spmv")
+        if mode == "none":
+            got = state_leaves(eng.state)
+            same_leaves({k: got[k] for k in ell_leaves}, ell_leaves, "fused vs ell engine")
+            out["equals_ell_engine"] = True
+        if mode == "prob":
+            real["bloom_query"] = bloom_real(eng)
+            out["bloom_fill_fraction"] = real["bloom_query"]["fill_fraction"]
+        if mode != "none":
+            out["peak_nbytes_vs_none"] = out["peak_nbytes"] / runs["none"]["peak_nbytes"]
+        del eng  # the captured call holds what the kernel timing needs
+        torch.cuda.empty_cache()
+        real[mode] = fused_real(capture)
+        runs[mode] = out
+        emit("main_fused", mode=mode, num_vertices=graph0.num_vertices, queries=len(sources),
+             chunk=chunk, **out)
+        del capture
+        torch.cuda.empty_cache()
+    return runs, real
+
+
+def parity_fused(device, num_vertices: int = 1 << 16) -> dict:
+    """``backend="ell"`` (K1 + the stitched PyTorch drop path) against
+    ``backend="fused"`` (K2) for the four semirings x three drop modes on a
+    short batched stream: every state leaf and every ``MaintainStats``."""
+    from repro_torch.core import queries as tq
+    from repro_torch.core.graph import DynamicGraph
+
+    rng = np.random.default_rng(SEED + 3)
+    num_edges = round(num_vertices * PATENTS_E / PATENTS_V)
+    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), 96, 0.2, rng)
+    both = np.concatenate([initial, initial[:, [1, 0, 2]]])
+    _, first = np.unique(both[:, 0] * num_vertices + both[:, 1], return_index=True)
+    sym_initial = both[np.sort(first)]
+    sym_stream = [x for (u, v, lbl, w, sg) in stream for x in ((u, v, lbl, w, sg), (v, u, lbl, w, sg))]
+    sources = pick_sources(DynamicGraph(num_vertices, initial), 8, rng)
+    kw = dict(batch_capacity=32, device=device)
+    cells = {  # semiring: (initial edges, stream, engine builder(graph, backend, drop))
+        "min_plus": (initial, stream, lambda g, be, dp: tq.sssp(g, sources, max_iters=48,
+                                                                backend=be, drop=dp, **kw)),
+        "min_hop": (initial, stream, lambda g, be, dp: tq.khop(g, sources, k=6, backend=be,
+                                                               drop=dp, **kw)),
+        "min_label": (sym_initial, sym_stream, lambda g, be, dp: tq.wcc(g, backend=be, drop=dp,
+                                                                        **kw)),
+        "pr_sum": (initial, stream, lambda g, be, dp: tq.pagerank(g, iters=10, backend=be,
+                                                                  drop=dp, **kw)),
+    }
+    out = {}
+    for semiring, (edges, log, build) in cells.items():
+        for mode in ("none", "det", "prob"):
+            drop = drop_policy(mode, 1 << 20)
+            engines = {be: build(DynamicGraph(num_vertices, edges), be, drop) for be in ("ell", "fused")}
+            iters = [int(engines["fused"].last_stats.iters_run)]
+            for lo in range(0, len(log), 32):
+                stats = {be: e.apply_updates_batched(log[lo : lo + 32]) for be, e in engines.items()}
+                for f in stats["ell"]._fields:
+                    if not np.array_equal(getattr(stats["ell"], f), getattr(stats["fused"], f)):
+                        raise AssertionError(f"{semiring}/{mode}: MaintainStats.{f} differs")
+                iters.append(int(stats["fused"].iters_run))
+            same_leaves(state_leaves(engines["fused"].state), state_leaves(engines["ell"].state),
+                        f"{semiring}/{mode}")
+            out[f"{semiring}/{mode}"] = {"leaf_equal": True, "sweep_iters": iters,
+                                         "dropped": int(engines["fused"].last_stats.dropped)}
+    return {"num_vertices": num_vertices, "num_edges_initial": int(initial.shape[0]), "cells": out}
 
 
 def other_semirings(device, num_vertices: int = 1 << 16) -> dict:
@@ -393,7 +877,9 @@ def main() -> None:
         raise SystemExit("chip_smoke.py needs a CUDA device; it has no CPU path")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels import ell_spmv as K
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -406,39 +892,97 @@ def main() -> None:
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=len(sources)) as ex:
         list(ex.map(_build.compile_source, sources))
-    K._lib()
+    for K in (K1, K2, K3):
+        K._lib()
     emit("build", seconds=time.perf_counter() - t0, sources=sources,
-         ptxas={s: _build.build_info[s]["log"].splitlines()[-2:] for s in sources})
+         build_s={s: _build.build_info[s]["seconds"] for s in sources},
+         ptxas={s: [ln for ln in _build.build_info[s]["log"].splitlines()
+                    if "registers" in ln or "spill" in ln] for s in sources})
 
     dev = "cuda"
-    emit("kernel_small", max_abs_err=kernel_small(dev), semirings=list(K.SEMIRINGS))
+    emit("kernel_small", **kernel_small(dev))
 
-    main_out, eng = main_path(dev, PATENTS_V, PATENTS_E, profile_dir=OUT_DIR)
-    emit("main", **main_out)
+    num_updates, chunk, num_queries = 256, 32, 8
+    graph0, stream, qsources, host_setup_s = make_data(PATENTS_V, PATENTS_E, num_updates, chunk, num_queries)
+    main_out, eng = run_stream(
+        copy_graph(graph0), qsources, stream, device=dev, backend="ell", num_updates=num_updates,
+        chunk=chunk, counters=(K1, K2, K3), profile_path=OUT_DIR / "chip_smoke_main_chunk_trace.json",
+    )
+    if main_out["launches"]["ell_spmv"] == 0:
+        raise AssertionError("the main path launched no ell_spmv kernel")
+    emit("main", num_vertices=PATENTS_V, num_edges_initial=int(graph0.num_edges), queries=num_queries,
+         chunk=chunk, ell_width=eng.g.ell_width, host_setup_s=host_setup_s, **main_out)
 
-    real = kernel_real(eng, np.random.default_rng(SEED + 2))
-    emit("kernel_real", q=eng.cfg.num_queries, v=eng.cfg.num_vertices, d=eng.g.ell_width, **real)
+    real1 = kernel_real(eng, np.random.default_rng(SEED + 2))
+    q, v, d = eng.cfg.num_queries, eng.cfg.num_vertices, eng.g.ell_width
+    ell_leaves = {k: x.cpu() for k, x in state_leaves(eng.state).items()}
     del eng
     torch.cuda.empty_cache()
 
+    runs, real = main_fused(graph0, qsources, stream, ell_leaves, device=dev,
+                            num_updates=num_updates, chunk=chunk)
+    del ell_leaves
+
+    emit("parity_fused", **parity_fused(dev))
+    emit("kernel_real", q=q, v=v, d=d, ell_spmv=real1,
+         fused_sweep={m: real[m] for m in ("none", "det", "prob")}, bloom_query=real["bloom_query"])
     emit("other_semirings", **other_semirings(dev))
 
-    mp = real["min_plus"]
-    print(json.dumps({"kernels": [{
-        "name": "ell_spmv",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
-        "replaces": "src/repro/kernels/ell_spmv.py:96",
-        "launches": main_out["ell_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in real.values()),
-        "ms": mp["ms"],
-        "plain_ms": mp["plain_ms"],
-        "bound_ms": mp["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "semiring": "min_plus",
-        "by_semiring": real,
-    }]}), flush=True)
+    mp = real1["min_plus"]
+    k2 = real["none"]
+    k3 = real["bloom_query"]
+    # launches over every main-path run: the ell engine and the three fused ones
+    launches = {k: sum(r["launches"][k] for r in (main_out, *runs.values()))
+                for k in ("ell_spmv", "fused_sweep", "bloom")}
+    print(json.dumps({"kernels": [
+        {
+            "name": "ell_spmv",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
+            "replaces": "src/repro/kernels/ell_spmv.py:96",
+            "launches": launches["ell_spmv"],
+            "launches_by_run": {"ell": main_out["launches"]["ell_spmv"],
+                                **{f"fused_{m}": r["launches"]["ell_spmv"] for m, r in runs.items()}},
+            "max_abs_err": max(r["max_abs_err"] for r in real1.values()),
+            "ms": mp["ms"],
+            "plain_ms": mp["plain_ms"],
+            "bound_ms": mp["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "semiring": "min_plus",
+            "by_semiring": real1,
+        },
+        {
+            "name": "fused_sweep",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_sweep.cu",
+            "replaces": "src/repro/kernels/fused_sweep.py:210",
+            "launches": launches["fused_sweep"],
+            "max_abs_err": max(real[m]["max_abs_err"] for m in ("none", "det", "prob")),
+            "ms": k2["ms"],
+            "plain_ms": k2["plain_ms"],
+            "bound_ms": k2["bound_ms"],
+            "bound_by": "bytes",
+            "out_of_place_floor_ms": k2["out_of_place_floor_ms"],
+            "library_ms": None,
+            "drop_mode": "none",
+            "launches_by_drop_mode": {m: r["launches"]["fused_sweep"] for m, r in runs.items()},
+            "by_drop_mode": {m: real[m] for m in ("none", "det", "prob")},
+        },
+        {
+            "name": "bloom_query",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bloom.cu",
+            "replaces": "src/repro/kernels/bloom.py:64",
+            "launches": launches["bloom"],  # no engine path calls it, as in the reference
+            "max_abs_err": k3["max_abs_err"],
+            "ms": k3["ms"],
+            "plain_ms": k3["plain_ms"],
+            "bound_ms": k3["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,10 +3,14 @@
 The reference's ``EngineState``/``GraphArrays``/``UpdateBatch`` pulled to
 numpy become a flat ``{name: ndarray}`` dict (store leaves as
 ``"dstore/iters"``, ``"dstore/vals"``, ``"dstore/count"``; DroppedVT scalars
-as ``"drop/det_overflow"``, ``"drop/max_iter"``; the rest by field name).
-These functions turn such a dict into the port's tensors on a device, and
-the port's state back into the same dict, so a run can move between the two
-packages mid-stream and be compared leaf by leaf.
+as ``"drop/det_overflow"``, ``"drop/max_iter"``; the Det store as
+``"drop_det/{iters,vals,count}"``; the Bloom filter as ``"drop_flt/bits"``
+and ``"drop_flt/num_hashes"``; the selection rows as
+``"drop_params/{p,tau_min,tau_max,degree_sel,seed}"`` with the seed in
+uint32; the rest by field name).  These functions turn such a dict into the
+port's tensors on a device (the seed held in int64), and the port's state
+back into the same dict, so a run can move between the two packages
+mid-stream and be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import bloom
 from repro_torch.core import diffstore as ds
 from repro_torch.core import dropping as dr
 from repro_torch.core.engine import EngineState, GraphArrays, UpdateBatch
@@ -25,21 +30,37 @@ def _t(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
+def _drop_state_from_numpy(leaves: dict[str, np.ndarray], device) -> dr.DropState:
+    det = flt = params = None
+    if "drop_det/iters" in leaves:
+        det = ds.DiffStore(*(_t(leaves[f"drop_det/{k}"], device) for k in ("iters", "vals", "count")))
+    if "drop_flt/bits" in leaves:
+        flt = bloom.BloomFilter(_t(leaves["drop_flt/bits"], device), int(leaves["drop_flt/num_hashes"]))
+    if "drop_params/p" in leaves:
+        params = dr.DropParams(*(
+            _t(np.asarray(leaves[f"drop_params/{f}"]).astype(np.int64) if f == "seed"
+               else leaves[f"drop_params/{f}"], device)
+            for f in dr.DropParams._fields
+        ))
+    return dr.DropState(
+        det=det,
+        flt=flt,
+        det_overflow=_t(leaves["drop/det_overflow"], device),
+        max_iter=_t(leaves["drop/max_iter"], device),
+        params=params,
+    )
+
+
 def engine_state_from_numpy(leaves: dict[str, np.ndarray], device) -> EngineState:
     """The port's :class:`EngineState` from the reference's numpy leaves
-    (JOD, dropping disabled: no J store, no DroppedVT rows)."""
-    for name in ("jstore/iters", "drop_det/iters", "drop_flt/bits", "join_mat"):
+    (JOD: no J store)."""
+    for name in ("jstore/iters", "join_mat"):
         if name in leaves:
             raise NotImplementedError(f"leaf {name!r} belongs to an unported configuration")
     return EngineState(
         dstore=ds.DiffStore(*(_t(leaves[f"dstore/{k}"], device) for k in ("iters", "vals", "count"))),
         jstore=None,
-        drop=dr.DropState(
-            det=None,
-            flt=None,
-            det_overflow=_t(leaves["drop/det_overflow"], device),
-            max_iter=_t(leaves["drop/max_iter"], device),
-        ),
+        drop=_drop_state_from_numpy(leaves, device),
         **{k: _t(leaves[k], device) for k in _STATE_TENSORS},
     )
 
@@ -47,8 +68,18 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray], device) -> EngineStat
 def engine_state_to_numpy(state: EngineState) -> dict[str, np.ndarray]:
     """The inverse of :func:`engine_state_from_numpy`."""
     out = {f"dstore/{k}": getattr(state.dstore, k).cpu().numpy() for k in ("iters", "vals", "count")}
-    out["drop/det_overflow"] = state.drop.det_overflow.cpu().numpy()
-    out["drop/max_iter"] = state.drop.max_iter.cpu().numpy()
+    drop = state.drop
+    out["drop/det_overflow"] = drop.det_overflow.cpu().numpy()
+    out["drop/max_iter"] = drop.max_iter.cpu().numpy()
+    if drop.det is not None:
+        out.update({f"drop_det/{k}": getattr(drop.det, k).cpu().numpy() for k in ("iters", "vals", "count")})
+    if drop.flt is not None:
+        out["drop_flt/bits"] = drop.flt.bits.cpu().numpy()
+        out["drop_flt/num_hashes"] = np.asarray(drop.flt.num_hashes)
+    if drop.params is not None:
+        for f in dr.DropParams._fields:
+            x = getattr(drop.params, f).cpu().numpy()
+            out[f"drop_params/{f}"] = x.astype(np.uint32) if f == "seed" else x
     for k in _STATE_TENSORS:
         out[k] = getattr(state, k).cpu().numpy()
     return out

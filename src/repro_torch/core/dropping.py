@@ -1,10 +1,19 @@
-"""Partial difference dropping (paper §5): configuration and the disabled path.
+"""Partial difference dropping (paper §5): Det-Drop, Prob-Drop, selection.
 
-The port so far runs with dropping disabled (``DropConfig.mode == "none"``):
-this module carries the configuration the plan IR and the engine read, the
-per-query selection rows, and the empty DroppedVT state.  The Det-Drop store
-and the Prob-Drop Bloom filter come with the dropping slice of the port; a
-config that enables either raises :class:`NotImplementedError` here.
+The port of ``repro/core/dropping.py``.  Two components, as in the paper:
+
+* **Dropped-difference maintenance** — a deterministic dense store of
+  (vertex, iteration) pairs (Det-Drop: sorted rows like the diff store,
+  iteration-only, ~4 bytes per dropped diff), or a Bloom filter (Prob-Drop,
+  fixed footprint).
+* **Selection** — Random (Bernoulli p) or Degree (τ_min / τ_max / p,
+  §5.2.1), decided by a stateless hash of (seed, query, vertex, iteration),
+  so drop sets are reproducible.
+
+Selection parameters are per query (``[Q]`` rows in :class:`DropParams`);
+the DroppedVT representation and its capacities are session-level.
+``select_stored_to_drop`` and ``latest_dropped_le`` come with the governor
+and access-path slices of the port.
 """
 
 from __future__ import annotations
@@ -14,17 +23,14 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import bloom as bloom_lib
+from repro_torch.core import diffstore as ds
+
 Tensor = torch.Tensor
 
 # Accounted bytes of one query's DropParams row: p (f32) + tau_min (f32) +
 # tau_max (f32) + degree_sel (1 B) + seed (u32).
 PARAMS_ROW_NBYTES = 17
-
-UNPORTED = (
-    "drop.mode={mode!r} (Det-/Prob-Drop) is not ported yet: it comes with the "
-    "dropping slice of the port (ROADMAP Queue 1 item 3(c)); use mode='none'"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class DropConfig:
@@ -99,18 +105,46 @@ def make_params(
         tau_min=torch.tensor(tmin, dtype=torch.float32, device=device),
         tau_max=torch.tensor(tmax, dtype=torch.float32, device=device),
         degree_sel=torch.tensor(sel, dtype=torch.bool, device=device),
-        seed=torch.tensor(seed, dtype=torch.int64, device=device) & 0xFFFFFFFF,
+        seed=torch.tensor(seed, dtype=torch.int64, device=device) & bloom_lib.M32,
     )
+
+
+def set_params_row(params: DropParams, q: int, cfg: DropConfig) -> DropParams:
+    """Return ``params`` with query ``q``'s row replaced by ``cfg``."""
+    row = params_row(cfg)
+    out = []
+    for field, value in zip(DropParams._fields, row):
+        t = getattr(params, field).clone()
+        t[q] = value & bloom_lib.M32 if field == "seed" else value
+        out.append(t)
+    return DropParams(*out)
 
 
 class DropState(NamedTuple):
     """DroppedVT — tracks dropped (vertex, iteration) pairs."""
 
-    det: object | None  # Det-Drop store (dropping slice)
-    flt: object | None  # Prob-Drop Bloom filter (dropping slice)
+    det: ds.DiffStore | None  # iters used; vals stay zero
+    flt: bloom_lib.BloomFilter | None
     det_overflow: Tensor  # int32 — det evictions that lost a dropped VT
-    max_iter: Tensor  # int32 — highest iteration ever dropped
+    max_iter: Tensor  # int32 — highest iteration ever dropped (horizon term)
     params: DropParams | None = None  # per-query selection ([Q] rows)
+
+    def nbytes_accounted(self, active: Tensor | None = None) -> int:
+        """Accounted DroppedVT bytes (paper §5.1 costings): 4 B per Det
+        record, or the packed filter (M/8 B) per live query row, plus
+        :data:`PARAMS_ROW_NBYTES` per live query for the selection rows.
+        ``active`` is the live-slot mask (default: every row counts)."""
+        def live_rows(rows: Tensor) -> int:
+            return int(rows.shape[0]) if active is None else int(active.to(torch.bool).sum())
+
+        total = 0
+        if self.params is not None:
+            total += live_rows(self.params.p) * PARAMS_ROW_NBYTES
+        if self.det is not None:
+            return total + int(self.det.count.sum()) * 4  # d bytes per dropped VT
+        if self.flt is None:
+            raise ValueError("nbytes_accounted of a disabled DroppedVT")
+        return total + live_rows(self.flt.bits) * ((self.flt.num_bits + 7) // 8)
 
 
 def make_state(
@@ -120,15 +154,93 @@ def make_state(
     per_query: "list[DropConfig] | None" = None,
     device=None,
 ) -> DropState:
-    """DroppedVT state for ``num_queries`` slots (disabled mode only)."""
-    del num_queries, num_keys, per_query
+    """DroppedVT state for ``num_queries`` slots.
+
+    ``cfg`` fixes the representation (mode, capacities); ``per_query``
+    optionally supplies each slot's selection parameters (default: ``cfg``
+    broadcast).
+    """
     if cfg.mode not in ("none", "det", "prob"):
         raise ValueError(f"unknown drop mode {cfg.mode!r}")
-    if cfg.enabled():
-        raise NotImplementedError(UNPORTED.format(mode=cfg.mode))
-    return DropState(
-        det=None,
-        flt=None,
-        det_overflow=torch.zeros((), dtype=torch.int32, device=device),
-        max_iter=torch.full((), -1, dtype=torch.int32, device=device),
+    z = torch.zeros((), dtype=torch.int32, device=device)
+    neg = torch.full((), -1, dtype=torch.int32, device=device)
+    if not cfg.enabled():
+        return DropState(det=None, flt=None, det_overflow=z, max_iter=neg)
+    params = make_params(per_query if per_query is not None else cfg, num_queries, device=device)
+    if cfg.mode == "det":
+        det = ds.make((num_queries, num_keys), cfg.det_capacity, device=device)
+        return DropState(det=det, flt=None, det_overflow=z, max_iter=neg, params=params)
+    flt = bloom_lib.make((num_queries,), cfg.bloom_bits, cfg.bloom_hashes, device=device)
+    return DropState(det=None, flt=flt, det_overflow=z, max_iter=neg, params=params)
+
+
+def _uniform01(seed, q, v, i) -> Tensor:
+    """Deterministic per-(seed, q, v, i) uniform in [0, 1).
+
+    The uint32 hash converts to float32 with round-to-nearest and is then
+    divided by 2**32, as the reference's ``astype(float32) / 2**32``: a hash
+    of ``0xFFFFFFFF`` rounds to 2**32 and reads 1.0.
+    """
+    u, m32, mix = bloom_lib.u32, bloom_lib.M32, bloom_lib._mix
+    h = mix(u(v) ^ mix((u(i) * 0x9E3779B9) & m32) ^ mix((u(q) + u(seed)) & m32))
+    return h.to(torch.float32) / float(2**32)
+
+
+def select_to_drop(params: DropParams, degree: Tensor, q, v, i) -> Tensor:
+    """Which candidate differences to drop (paper §5.2, Fig. 3).
+
+    ``degree`` (f32, the vertex's total degree) broadcasts against q/v/i;
+    the per-query rows of ``params`` broadcast over the vertex axis.
+    """
+    u = _uniform01(params.seed[:, None], q, v, i)
+    coin = u < params.p[:, None]
+    by_degree = torch.where(
+        degree < params.tau_min[:, None],
+        True,
+        torch.where(degree > params.tau_max[:, None], False, coin),
     )
+    return torch.where(params.degree_sel[:, None], by_degree, coin)
+
+
+def register(state: DropState, i, mask: Tensor) -> DropState:
+    """Record dropped VT pairs (v, i) where ``mask`` [Q, V].
+
+    ``i`` is a scalar iteration or a per-(q, v) int32 tensor (evictions drop
+    each row's own oldest iteration).  The Bloom key is the vertex id and
+    the iteration, salted by the query slot index.
+    """
+    hi = torch.where(mask, torch.as_tensor(i, dtype=torch.int32, device=mask.device), -1).max()
+    max_iter = torch.maximum(state.max_iter, hi)
+    if state.det is not None:
+        zeros = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+        det, evicted, _ = ds.upsert(state.det, i, mask, zeros)
+        overflow = state.det_overflow + evicted.sum(dtype=torch.int32)
+        return state._replace(det=det, det_overflow=overflow, max_iter=max_iter)
+    if state.flt is not None:
+        qn, vn = mask.shape
+        v_ids = torch.arange(vn, dtype=torch.int32, device=mask.device)[None, :]
+        salt = torch.arange(qn, dtype=torch.int32, device=mask.device)[:, None]
+        flt = bloom_lib.insert(state.flt, v_ids, i, mask, salt=salt)
+        return state._replace(flt=flt, max_iter=max_iter)
+    return state
+
+
+def unregister(state: DropState, i, mask: Tensor) -> DropState:
+    """Remove dropped records at (v, i) — only possible deterministically;
+    a Bloom filter cannot delete, and its stale positives are harmless."""
+    if state.det is not None:
+        return state._replace(det=ds.remove_at(state.det, i, mask))
+    return state
+
+
+def dropped_at(state: DropState, i: int, num_vertices: int) -> Tensor:
+    """Mask [Q, V]: was a diff for (v, i) dropped? (Prob: may false-positive.)"""
+    if state.det is not None:
+        return ds.has_at(state.det, i)
+    if state.flt is not None:
+        qn = state.flt.bits.shape[0]
+        dev = state.flt.bits.device
+        v_ids = torch.arange(num_vertices, dtype=torch.int32, device=dev)[None, :]
+        salt = torch.arange(qn, dtype=torch.int32, device=dev)[:, None]
+        return bloom_lib.query(state.flt, v_ids, i, salt=salt)
+    raise ValueError("dropped_at called with dropping disabled")

@@ -2,11 +2,13 @@
 
 The port of ``repro/core/engine.py`` for one configuration of it: JOD mode
 (Join-On-Demand, §4: no per-edge join store, messages are recomputed from
-in-neighbour states every iteration), no partial dropping, one device, with
-the ``coo`` (scatter-reduce) or ``ell`` (CUDA ``ell_spmv`` kernel) aggregator.
-VDC mode, dropping, the ``fused`` backend, the query-slot pool and the
-vertex-sharded sweep raise :class:`NotImplementedError` until their slices of
-the port land (ROADMAP Queue 1 item 3).
+in-neighbour states every iteration), one device, partial dropping (§5:
+Det-Drop or Prob-Drop, Random or Degree selection) or none, and one of
+three backends: ``coo`` (scatter-reduce), ``ell`` (the CUDA ``ell_spmv``
+kernel as the aggregator) or ``fused`` (the CUDA ``fused_sweep`` kernel: the
+whole per-vertex iteration in one launch).  VDC mode, the query-slot pool
+and the vertex-sharded sweep raise :class:`NotImplementedError` until their
+slices of the port land (ROADMAP Queue 1 item 3).
 
 Timestamps are eager-merged (§4.2) so each (query, vertex) holds a 1-D sorted
 list of (iteration, state) change points; negative multiplicities are implied
@@ -23,9 +25,10 @@ Maintenance is a bounded forward sweep over IFE iterations.  Per iteration i:
                trajectory → out-neighbours enter frontier_{i+1}
 
 The sweep ends when the frontier is empty and i exceeds the stored horizon
-(max change-point iteration), bounded by ``max_iters``.  The reference runs
-it as one ``lax.while_loop``; here it is a host loop that reads the two loop
-scalars (``live``, ``horizon``) from the device once per iteration.
+(max change-point iteration, or the highest dropped iteration if later),
+bounded by ``max_iters``.  The reference runs it as one ``lax.while_loop``;
+here it is a host loop that reads the loop scalars (``live``, ``horizon``,
+``drop.max_iter``) from the device in one sync per iteration.
 
 Every function below is pure in the engine state: a sweep builds new store
 tensors and leaves its input state as it was, which is how the pre-update
@@ -46,6 +49,7 @@ from repro_torch.core import dropping as dr
 from repro_torch.core.graph import DynamicGraph, EllIndex, EllOverflow, GraphSnapshot
 from repro_torch.core.semiring import Semiring, reduce_pair
 from repro_torch.kernels.ell_spmv import ell_spmv
+from repro_torch.kernels.fused_sweep import fused_sweep
 from repro_torch.obs import trace as obs_trace
 
 Tensor = torch.Tensor
@@ -69,9 +73,10 @@ def resolve_device(device=None) -> torch.device:
 class GraphArrays(NamedTuple):
     """Fixed-shape device view of the graph (COO + degrees).
 
-    With ``backend="ell"`` the bucketed in-adjacency (``nbr``/``ell_w``,
-    shape [V, D]) rides along for the ELL kernel; the COO arrays stay — the
-    frontier push and the δE dirty propagation are edge-indexed.
+    With ``backend="ell"`` or ``"fused"`` the bucketed in-adjacency
+    (``nbr``/``ell_w``, shape [V, D]) rides along for the kernels; the COO
+    arrays stay — the frontier push and the δE dirty propagation are
+    edge-indexed.
     """
 
     src: Tensor  # int32 [E]
@@ -106,7 +111,7 @@ class GraphArrays(NamedTuple):
             return torch.from_numpy(x).to(device)
 
         nbr = ell_w = None
-        if backend == "ell":
+        if backend in ("ell", "fused"):
             nbr_np, w_np, _ = s.to_ell(min_width=ell_min_width)
             nbr, ell_w = put(nbr_np), put(w_np)
         return cls(
@@ -137,7 +142,8 @@ class EngineConfig:
     alpha: float = 0.85
     # Aggregator backend: "coo" = masked scatter-reduce over the edge list;
     # "ell" = the CUDA bucketed-ELL SpMV kernel (JOD only — the kernel *is*
-    # the fused Join+Min); "fused" = the maintenance megakernel (not ported).
+    # the fused Join+Min); "fused" = the maintenance kernel (K2): expand,
+    # DroppedVT probe, δ detection and store upsert/remove in one launch.
     backend: str = "coo"
 
     def __post_init__(self):
@@ -152,13 +158,6 @@ class EngineConfig:
                 "mode='vdc' (the per-edge J store) is not ported yet: it comes "
                 "with the VDC slice of the port (ROADMAP Queue 1 item 3(e))"
             )
-        if self.backend == "fused":
-            raise NotImplementedError(
-                "backend='fused' (the maintenance megakernel, K2) is not ported "
-                "yet: it is the next slice of the port (ROADMAP Queue 1 item 3(d))"
-            )
-        if self.drop.enabled():
-            raise NotImplementedError(dr.UNPORTED.format(mode=self.drop.mode))
 
 
 class EngineState(NamedTuple):
@@ -265,21 +264,33 @@ def _ell_weights(cfg: EngineConfig, g: GraphArrays) -> Tensor:
     return g.ell_w
 
 
-def ell_step(cfg: EngineConfig, cur: Tensor, g: GraphArrays) -> Tensor:
-    """One exact IFE step through the ELL SpMV kernel (JOD fused)."""
+def _ell_operands(cfg: EngineConfig, cur: Tensor, g: GraphArrays) -> dict:
+    """The expand's operands for the ELL and fused kernels: states with the
+    identity sentinel column, the weight tile and the carry."""
     sr = cfg.semiring
     pad = torch.full((cur.shape[0], 1), sr.identity, dtype=cur.dtype, device=cur.device)
-    states = torch.cat([cur, pad], dim=1)  # padding cells gather the identity
-    kcarry = cur if sr.carry_prev else torch.full_like(cur, sr.base)
+    return dict(
+        states=torch.cat([cur, pad], dim=1),  # padding cells gather the identity
+        nbr=g.nbr,
+        w=_ell_weights(cfg, g),
+        kcarry=cur if sr.carry_prev else torch.full_like(cur, sr.base),
+    )
+
+
+def ell_step(cfg: EngineConfig, cur: Tensor, g: GraphArrays) -> Tensor:
+    """One exact IFE step through the ELL SpMV kernel (JOD fused)."""
+    ops = _ell_operands(cfg, cur, g)
+    sr = cfg.semiring
     return ell_spmv(
-        states, g.nbr, _ell_weights(cfg, g), kcarry,
+        ops["states"], ops["nbr"], ops["w"], ops["kcarry"],
         semiring=sr.kernel_name, hop_cap=sr.hop_cap,
     )
 
 
 def ife_step(cfg: EngineConfig, cur: Tensor, g: GraphArrays) -> Tensor:
-    """One exact IFE step D_{i-1} → D_i (join recomputed — the JOD path)."""
-    if cfg.backend == "ell":
+    """One exact IFE step D_{i-1} → D_i (join recomputed — the JOD path).
+    Under ``fused`` it is the ELL step (the scratch oracle reuses it)."""
+    if cfg.backend in ("ell", "fused"):
         return ell_step(cfg, cur, g)
     return aggregate(cfg, edge_messages(cfg, cur, g), cur, g)
 
@@ -300,8 +311,18 @@ def push_frontier(changed: Tensor, g: GraphArrays) -> Tensor:
 
 
 # --------------------------------------------------------------------------- maintenance
-def make_state(cfg: EngineConfig, init: Tensor, num_edges: int) -> EngineState:
-    """Engine state for ``cfg.num_queries`` slots, all active."""
+def make_state(
+    cfg: EngineConfig,
+    init: Tensor,
+    num_edges: int,
+    *,
+    drop_rows: list[dr.DropConfig] | None = None,
+) -> EngineState:
+    """Engine state for ``cfg.num_queries`` slots, all active.
+
+    ``drop_rows`` supplies each slot's selection parameters (default:
+    ``cfg.drop`` broadcast).
+    """
     del num_edges  # sizes the J store, which JOD does not keep
     q, v = cfg.num_queries, cfg.num_vertices
     if tuple(init.shape) != (q, v):
@@ -311,7 +332,7 @@ def make_state(cfg: EngineConfig, init: Tensor, num_edges: int) -> EngineState:
     return EngineState(
         dstore=ds.make((q, v), cfg.store_capacity, device=dev),
         jstore=None,
-        drop=dr.make_state(cfg.drop, q, v, device=dev),
+        drop=dr.make_state(cfg.drop, q, v, per_query=drop_rows, device=dev),
         init=init,
         cur=init,
         repair_counts=torch.zeros((q, v), dtype=torch.int32, device=dev),
@@ -328,11 +349,130 @@ class _Carry(NamedTuple):
     i: int  # the iteration this body computes (host loop counter)
     cur: Tensor  # exact D_{i-1}
     cur_old: Tensor  # pre-update trajectory value at i-1 (store-lookup based)
+    stale_old: Tensor  # bool [Q,V]: old trajectory obscured by a dropped diff
     frontier: Tensor  # bool [Q,V]: δD direct-rule schedule for iteration i
     dstore: ds.DiffStore
+    drop: dr.DropState
+    repair_counts: Tensor  # int32 [Q,V]
     horizon: Tensor  # int32 — running max change-point iteration (upper bound)
     live: Tensor  # bool — work remains (frontier ∪ dirty nonempty)
     stats: MaintainStats
+
+
+class _Step(NamedTuple):
+    """One iteration's results, from the stitched path or the fused kernel."""
+
+    dstore: ds.DiffStore
+    drop: dr.DropState
+    cur: Tensor
+    old: Tensor
+    stale: Tensor
+    changed: Tensor
+    repair: Tensor
+    to_store: Tensor
+    to_drop: Tensor
+    vanish: Tensor
+
+
+def _degree(g: GraphArrays) -> Tensor:
+    """Total degree per vertex (f32 [V]), the Degree selection's input."""
+    return (g.out_degree + g.in_degree).to(torch.float32)
+
+
+def _stitched_step(
+    cfg: EngineConfig,
+    g: GraphArrays,
+    sched: Tensor,
+    old_dstore: ds.DiffStore,
+    active: Tensor,
+    c: _Carry,
+) -> _Step:
+    """One iteration as separate tensor passes around the aggregator."""
+    i = c.i
+    q, v = c.cur.shape
+    drop_on = cfg.drop.enabled()
+    new = ife_step(cfg, c.cur, g)
+
+    # dropped change points at i must be recomputed to keep `cur` exact
+    # (AccessDᵢᵛWithDrops, forward form); Prob-Drop may false-positive here
+    # → spurious but safe recompute
+    dropped_here = dr.dropped_at(c.drop, i, v) if drop_on else torch.zeros_like(sched)
+    repair = dropped_here & active[:, None] & ~sched
+
+    # pre-update trajectory at i (δ detection), from the frozen store; a
+    # dropped old change point leaves old_i stale until the next stored old
+    # point re-anchors it
+    old_has, old_val = ds.value_at(old_dstore, i)
+    old_i = torch.where(old_has, old_val, c.cur_old)
+    stale = (c.stale_old | dropped_here) & ~old_has
+    changed = sched & ((new != old_i) | stale)
+
+    # new trajectory change point at i?  (vs exact D_{i-1} = cur)
+    want_point = sched & (new != c.cur)
+    has_cur, cur_stored_val = ds.value_at(c.dstore, i)
+    if drop_on:
+        q_ids = torch.arange(q, dtype=torch.int32, device=sched.device)[:, None]
+        v_ids = torch.arange(v, dtype=torch.int32, device=sched.device)[None, :]
+        picked = dr.select_to_drop(c.drop.params, _degree(g)[None, :], q_ids, v_ids, i)
+        to_drop = want_point & picked
+        to_store = want_point & ~to_drop
+    else:
+        to_drop = torch.zeros_like(want_point)
+        to_store = want_point
+    dstore, evicted, evicted_iter = ds.upsert(c.dstore, i, to_store, new)
+    # one removal pass: a dropped point at i loses its stored twin, and a
+    # vanished change point (+/- pair cancelled) is deleted
+    vanish = sched & ~want_point & has_cur
+    dstore = ds.remove_at(dstore, i, (to_drop & has_cur) | vanish)
+
+    drop = c.drop
+    if drop_on:
+        drop = dr.register(drop, i, to_drop)
+        drop = dr.register(drop, evicted_iter, evicted)
+        # a dropped record is stale once the point is stored or vanished
+        drop = dr.unregister(drop, i, to_store | vanish)
+
+    cur_next = torch.where(sched | repair, new, torch.where(has_cur, cur_stored_val, c.cur))
+    return _Step(dstore, drop, cur_next, old_i, stale, changed, repair, to_store, to_drop, vanish)
+
+
+def _fused_step(
+    cfg: EngineConfig,
+    g: GraphArrays,
+    sched: Tensor,
+    old_dstore: ds.DiffStore,
+    active: Tensor,
+    c: _Carry,
+) -> _Step:
+    """One iteration in one ``fused_sweep`` launch; Det rows come back from
+    the kernel, Bloom inserts run here (the OR is idempotent, so the bits
+    equal the stitched path's)."""
+    sr, mode = cfg.semiring, cfg.drop.mode
+    kw: dict = _ell_operands(cfg, c.cur, g)
+    if cfg.drop.enabled():
+        kw.update(degree=_degree(g), params=c.drop.params)
+        if mode == "det":
+            kw["det"] = c.drop.det
+        else:
+            kw.update(bloom_bits=c.drop.flt.bits, bloom_hashes=c.drop.flt.num_hashes)
+    out = fused_sweep(
+        c.i, sched, active, c.cur, c.cur_old, c.stale_old, c.dstore, old_dstore,
+        semiring=sr.kernel_name, hop_cap=sr.hop_cap, drop_mode=mode, **kw,
+    )
+    drop = c.drop
+    if mode == "det":
+        drop = drop._replace(
+            det=ds.DiffStore(out.det_iters, c.drop.det.vals, out.det_count),
+            det_overflow=c.drop.det_overflow + out.det_overflow.sum(dtype=torch.int32),
+            max_iter=torch.maximum(c.drop.max_iter, out.det_max_iter.max()),
+        )
+    elif mode == "prob":
+        drop = dr.register(drop, c.i, out.to_drop)
+        drop = dr.register(drop, out.evicted_iter, out.evicted)
+    return _Step(
+        ds.DiffStore(out.d_iters, out.d_vals, out.d_count), drop, out.cur, out.old,
+        out.stale, out.changed, out.repair, out.to_store, out.to_drop, out.vanish,
+    )
 
 
 def _sweep_body(
@@ -343,33 +483,15 @@ def _sweep_body(
     active: Tensor,
     c: _Carry,
 ) -> _Carry:
-    """One IFE iteration of the stitched JOD sweep.  Dropping is disabled, so
-    there is no repair set, no stale old trajectory and no DroppedVT
-    registration — evicted points are simply lost, as in the reference's
-    mode-``none`` path."""
+    """One IFE iteration of the JOD sweep, stitched or fused."""
     i = c.i
     # δE direct + upper-bound rules: dirty endpoints rerun at every live i
     sched = (c.frontier | dirty) & active[:, None]
-    new = ife_step(cfg, c.cur, g)
-
-    # pre-update trajectory at i (δ detection), from the frozen store
-    old_has, old_val = ds.value_at(old_dstore, i)
-    old_i = torch.where(old_has, old_val, c.cur_old)
-    changed = sched & (new != old_i)
-
-    # new trajectory change point at i?  (vs exact D_{i-1} = cur)
-    want_point = sched & (new != c.cur)
-    has_cur, cur_stored_val = ds.value_at(c.dstore, i)
-    to_store = want_point
-    dstore, _evicted, _evicted_iter = ds.upsert(c.dstore, i, to_store, new)
-    # a vanished change point (+/- pair cancelled) is deleted
-    vanish = sched & ~want_point & has_cur
-    dstore = ds.remove_at(dstore, i, vanish)
-
-    # advance the exact trajectory
-    cur_next = torch.where(sched, new, torch.where(has_cur, cur_stored_val, c.cur))
+    step = (_fused_step if cfg.backend == "fused" else _stitched_step)(
+        cfg, g, sched, old_dstore, active, c
+    )
     # | changed: carry a changed vertex's own next value
-    frontier_next = push_frontier(changed, g) | changed
+    frontier_next = push_frontier(step.changed, g) | step.changed
 
     # per-iteration probe: iteration i lands in bin i-1 (clamped to the last bin)
     bin_i = min(i - 1, ITER_TRACE - 1)
@@ -381,19 +503,24 @@ def _sweep_body(
     stats = c.stats._replace(
         iters_run=c.stats.iters_run + 1,
         scheduled=c.stats.scheduled + n_sched,
-        changed=c.stats.changed + _count(changed),
-        written=c.stats.written + _count(to_store),
-        removed=c.stats.removed + _count(vanish),
+        changed=c.stats.changed + _count(step.changed),
+        repairs=c.stats.repairs + _count(step.repair),
+        written=c.stats.written + _count(step.to_store),
+        removed=c.stats.removed + _count(step.vanish),
+        dropped=c.stats.dropped + _count(step.to_drop),
         sched_sizes=sched_sizes,
         frontier_sizes=frontier_sizes,
     )
-    horizon = torch.where(to_store.any(), c.horizon.clamp(min=i), c.horizon)
+    horizon = torch.where(step.to_store.any(), c.horizon.clamp(min=i), c.horizon)
     return _Carry(
         i=i + 1,
-        cur=cur_next,
-        cur_old=old_i,
+        cur=step.cur,
+        cur_old=step.old,
+        stale_old=step.stale,
         frontier=frontier_next,
-        dstore=dstore,
+        dstore=step.dstore,
+        drop=step.drop,
+        repair_counts=c.repair_counts + step.repair.to(torch.int32),
         horizon=horizon,
         live=frontier_next.any() | dirty.any(),
         stats=stats,
@@ -408,7 +535,10 @@ def _maintain_core(
     Continue while work is scheduled (frontier/dirty) AND the sweep can still
     mutate the store: mutations happen only at i ≤ horizon+1 (an in-neighbour
     change point at j feeds a consumer at j+1, and fresh writes at i extend
-    the horizon to ≥ i).  i == 1 always runs when anything is dirty.
+    the horizon to ≥ i).  Dropped change points still anchor the horizon
+    (they must be swept past so `cur` picks up their repaired values); with
+    dropping off ``drop.max_iter`` stays -1.  i == 1 always runs when
+    anything is dirty.
     """
     old_dstore = state.dstore  # frozen: the sweep never writes into it
     zeros = torch.zeros(dirty.shape, dtype=torch.bool, device=dirty.device)
@@ -416,19 +546,29 @@ def _maintain_core(
         i=1,
         cur=state.init,
         cur_old=state.init,
+        stale_old=zeros,
         frontier=zeros,
         dstore=state.dstore,
+        drop=state.drop,
+        repair_counts=state.repair_counts,
         horizon=stored_horizon(state.dstore),
         live=dirty.any(),
         stats=zeros_stats(dirty.device),
     )
     while c.i <= cfg.max_iters:
-        live, horizon = torch.stack([c.live.to(torch.int32), c.horizon]).tolist()
-        if not (live and (c.i == 1 or c.i <= horizon + 1)):
+        # the one host sync of an iteration: all loop scalars at once
+        live, horizon, max_iter = torch.stack(
+            [c.live.to(torch.int32), c.horizon, c.drop.max_iter]
+        ).tolist()
+        if not (live and (c.i == 1 or c.i <= max(horizon, max_iter) + 1)):
             break
         c = _sweep_body(cfg, g, dirty, old_dstore, state.active, c)
-    new_state = state._replace(dstore=c.dstore, cur=c.cur)
-    return new_state, c.stats
+    # Det-Drop record loss this sweep
+    stats = c.stats._replace(det_overflow=c.drop.det_overflow - state.drop.det_overflow)
+    new_state = state._replace(
+        dstore=c.dstore, drop=c.drop, cur=c.cur, repair_counts=c.repair_counts
+    )
+    return new_state, stats
 
 
 def _dirty_2d(cfg: EngineConfig, dirty: Tensor) -> Tensor:
@@ -460,9 +600,12 @@ def answers(cfg: EngineConfig, state: EngineState) -> Tensor:
 
 def nbytes_accounted(cfg: EngineConfig, state: EngineState) -> int:
     """Difference-entry bytes, the paper's memory metric (8 B per diff:
-    4 B iteration + 4 B state)."""
-    del cfg  # no J store, no DroppedVT in the ported configurations
-    return int(state.dstore.count.sum()) * 8
+    4 B iteration + 4 B state), plus the DroppedVT per §5.1 costings (the
+    selection rows and Bloom rows of live slots only)."""
+    total = int(state.dstore.count.sum()) * 8
+    if cfg.drop.enabled():
+        total += state.drop.nbytes_accounted(state.active)
+    return total
 
 
 # --------------------------------------------------------------------------- batched updates
@@ -482,7 +625,7 @@ class UpdateBatch(NamedTuple):
     valid: Tensor  # bool [B] — final slot validity
     dirty_v: Tensor  # int32 [B] — endpoint to dirty (δE direct rule); V padding
     touched_src: Tensor  # int32 [B] — update source (degree-retune rule); V padding
-    ell_row: Tensor  # int32 [B] — ELL cell writes (backend="ell"); V padding
+    ell_row: Tensor  # int32 [B] — ELL cell writes (ell/fused); V padding
     ell_col: Tensor  # int32 [B]
     ell_nbr: Tensor  # int32 [B]
     ell_w: Tensor  # f32  [B]
@@ -518,7 +661,7 @@ def batched_step(
     out_degree = torch.zeros(v, dtype=torch.int32, device=live.device).index_add_(0, src, live)
     in_degree = torch.zeros(v, dtype=torch.int32, device=live.device).index_add_(0, dst, live)
     nbr, ell_w = g.nbr, g.ell_w
-    if cfg.backend == "ell":
+    if cfg.backend in ("ell", "fused"):
         row_ok = upd.ell_row < v  # padding rows (ell_row == V) write nothing
         cell = (upd.ell_row[row_ok].long(), upd.ell_col[row_ok].long())
         nbr.index_put_(cell, upd.ell_nbr[row_ok])
@@ -573,7 +716,8 @@ class DiffIFE:
       in fixed-shape chunks of ``batch_capacity`` through :func:`batched_step`,
       so the graph and stores never leave the device.
 
-    With ``cfg.backend == "ell"`` the bucketed in-adjacency rides along; its
+    With ``cfg.backend`` ``"ell"`` or ``"fused"`` the bucketed in-adjacency
+    rides along; its
     width ``D`` is kept fixed across updates (host :class:`EllIndex` mirror)
     and grows geometrically — with a full re-upload — only when a vertex's
     in-degree outruns it.
@@ -590,6 +734,7 @@ class DiffIFE:
         *,
         batch_capacity: int = 32,
         mesh=None,
+        drop_rows: list[dr.DropConfig] | None = None,
         device=None,
     ) -> None:
         if mesh is not None:
@@ -605,7 +750,7 @@ class DiffIFE:
         self._ell_index: EllIndex | None = None
         self.g = self._device_graph(graph.snapshot())
         init = torch.as_tensor(init, dtype=torch.float32).to(self.device)
-        self.state = make_state(cfg, init, graph.capacity)
+        self.state = make_state(cfg, init, graph.capacity, drop_rows=drop_rows)
         self.last_stats: MaintainStats | None = None
         # cumulative scheduled vertex-reruns across all sweeps
         self._sched_total = 0
@@ -614,9 +759,9 @@ class DiffIFE:
 
     # ------------------------------------------------------------ device views
     def _device_graph(self, snap: GraphSnapshot) -> GraphArrays:
-        if self.cfg.backend == "ell":
+        if self.cfg.backend in ("ell", "fused"):
             g = GraphArrays.from_snapshot(
-                snap, backend="ell", ell_min_width=self._ell_width, device=self.device
+                snap, backend=self.cfg.backend, ell_min_width=self._ell_width, device=self.device
             )
             self._ell_width = g.ell_width
             self._ell_index = EllIndex(snap, self._ell_width)
@@ -696,7 +841,7 @@ class DiffIFE:
                 if not ops:
                     continue
                 ell_writes: list = []
-                if self.cfg.backend == "ell":
+                if self.cfg.backend in ("ell", "fused"):
                     try:
                         ell_writes = self._ell_index.writes_for(ops)
                     except EllOverflow:
@@ -766,7 +911,7 @@ class DiffIFE:
     register_slots = _unported("register_slots", SLOT_POOL)
     deregister_slot = _unported("deregister_slot", SLOT_POOL)
     set_join_store = _unported("set_join_store", "the VDC slice of the port (ROADMAP Queue 1 item 3(e))")
-    set_drop_params = _unported("set_drop_params", "the dropping slice of the port (ROADMAP Queue 1 item 3(c))")
+    set_drop_params = _unported("set_drop_params", "the governor slice of the port (ROADMAP Queue 1 item 6)")
     export_state = _unported("export_state", SLOT_POOL)
     import_state = _unported("import_state", SLOT_POOL)
 

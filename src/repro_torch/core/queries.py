@@ -37,7 +37,8 @@ def engine_from_plans(
 ) -> DiffIFE:
     """Dense engine for a fixed batch of same-family plans (Q slots, all
     active, no padding).  ``drop`` is the session-level DroppedVT
-    representation."""
+    representation; each plan's own ``drop`` supplies its per-query
+    selection row."""
     first = plans[0]
     for p in plans[1:]:
         if p.family_key() != first.family_key():
@@ -67,7 +68,13 @@ def engine_from_plans(
     )
     init = np.stack([p.build_init(v) for p in plans])
     return DiffIFE(
-        cfg, graph, init, batch_capacity=batch_capacity, mesh=mesh, device=device
+        cfg,
+        graph,
+        init,
+        batch_capacity=batch_capacity,
+        mesh=mesh,
+        drop_rows=[p.drop for p in plans],
+        device=device,
     )
 
 

@@ -21,8 +21,10 @@ def engine_config_for(
 ) -> EngineConfig:
     """The :class:`EngineConfig` of a plan family.
 
-    ``backend`` picks the sweep aggregator: ``"coo"`` (scatter-reduce) or
-    ``"ell"`` (the CUDA bucketed-ELL SpMV, JOD only)."""
+    ``backend`` picks the sweep: ``"coo"`` (scatter-reduce), ``"ell"`` (the
+    CUDA bucketed-ELL SpMV as aggregator, JOD only) or ``"fused"`` (the CUDA
+    maintenance kernel, one launch per iteration).  ``drop`` passes through
+    unchanged."""
     return EngineConfig(
         num_queries=num_queries,
         num_vertices=num_vertices,

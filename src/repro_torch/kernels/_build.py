@@ -2,9 +2,10 @@
 
 Each source in ``kernels/csrc/`` compiles on its own into a shared library
 with a plain C interface, under ``<repo>/build/repro_torch/`` (``.gitignore``
-lists ``build/``), named by a hash of the source and the flags so an edited
-source rebuilds and an unchanged one loads from the cache.  Nothing here runs
-when the module is imported; :func:`load` compiles on the first call for a
+lists ``build/``), named by a hash of the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source or header rebuilds and an
+unchanged one loads from the cache.  Nothing here runs when the module is
+imported; :func:`load` compiles on the first call for a
 source and keeps the handle for the process.
 
 ``nvcc`` is ``$CUDA_HOME/bin/nvcc`` (default ``/usr/local/cuda``) or the one
@@ -51,10 +52,14 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, csrc: Path = CSRC) -> Path:
     """Where the library for ``csrc/<source>`` lands: keyed by the source
-    text and the flags."""
-    digest = hashlib.sha256((CSRC / source).read_bytes())
+    text, the text of every shared header ``csrc/*.cuh`` (a source may
+    include any of them) and the flags."""
+    digest = hashlib.sha256((csrc / source).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

@@ -30,33 +30,17 @@
 //    sector instead of Q sectors from Q separate rows.
 // The grid masks the ragged last block itself (no block-multiple contract).
 //
-// Exactness.  The min family does one add/compare per message, as the plain
-// version does, so results are bit-identical.  pr_sum keeps the product and
-// the add separate (__fmul_rn/__fadd_rn: no FMA contraction), so only the
-// summation order can differ from the plain version.
+// Exactness and the shared row body: csrc/ell_row.cuh (also K2's expand).
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "ell_row.cuh"
 
 namespace {
 
-constexpr int QB = 8;        // queries per register block
+using namespace ell_row;
+
 constexpr int THREADS = 256;  // threads (vertex rows) per block
-
-enum Semiring { MIN_PLUS = 0, MIN_HOP = 1, MIN_LABEL = 2, PR_SUM = 3 };
-
-template <int SR>
-__device__ __forceinline__ float msg_reduce(float acc, float s, float wv,
-                                            float hop_cap) {
-  if (SR == MIN_PLUS) return fminf(acc, __fadd_rn(s, wv));
-  if (SR == MIN_HOP) {
-    float m = __fadd_rn(s, 1.0f);
-    if (m > hop_cap) m = CUDART_INF_F;
-    return fminf(acc, m);
-  }
-  if (SR == MIN_LABEL) return fminf(acc, s);
-  return __fadd_rn(acc, __fmul_rn(s, wv));  // PR_SUM
-}
 
 // One vertex row, all queries: the row's nbr/w are read once per block of
 // QB queries, whose accumulators stay in registers.
@@ -68,27 +52,15 @@ __device__ __forceinline__ void spmv_row(const float* __restrict__ states_t,
                                          float* __restrict__ out, long long v,
                                          int q_total, int v_rows, int d_cols,
                                          float hop_cap) {
-  constexpr bool kSum = SR == PR_SUM;
-  constexpr bool kNeedsW = SR == MIN_PLUS || SR == PR_SUM;
   for (int q0 = 0; q0 < q_total; q0 += QB) {
     const int nq = min(QB, q_total - q0);
     float acc[QB];
-#pragma unroll
-    for (int j = 0; j < QB; ++j) acc[j] = kSum ? 0.0f : CUDART_INF_F;
-#pragma unroll 4
-    for (int d = 0; d < d_cols; ++d) {
-      const long long n = __ldg(nrow + d);
-      const float wv = kNeedsW ? __ldg(wrow + d) : 0.0f;
-      const float* srow = states_t + n * q_total + q0;
-#pragma unroll
-      for (int j = 0; j < QB; ++j)
-        if (j < nq) acc[j] = msg_reduce<SR>(acc[j], __ldg(srow + j), wv, hop_cap);
-    }
+    expand_block<SR>(states_t, nrow, wrow, q0, nq, q_total, d_cols, hop_cap, acc);
 #pragma unroll
     for (int j = 0; j < QB; ++j) {
       if (j < nq) {
         const long long o = (long long)(q0 + j) * v_rows + v;
-        out[o] = kSum ? __fadd_rn(acc[j], carry[o]) : fminf(acc[j], carry[o]);
+        out[o] = combine<SR>(acc[j], carry[o]);
       }
     }
   }

@@ -314,19 +314,24 @@ def test_maintain_leaves_its_input_state_frozen():
 
 
 def test_unported_configurations_raise():
+    from repro_torch.kernels.fused_sweep import fused_sweep
+
     g = TGraph(4, [(0, 1, 1.0)], capacity=8)
     with pytest.raises(NotImplementedError, match="VDC slice"):
         tq.sssp(g, [0], mode="vdc", device=CPU)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tq.sssp(g, [0], backend="fused", device=CPU)
-    with pytest.raises(NotImplementedError, match="dropping slice"):
-        tq.sssp(g, [0], drop=tdr.DropConfig(mode="det", p=0.5), device=CPU)
     with pytest.raises(NotImplementedError, match="sharded slice"):
         tq.sssp(g, [0], mesh=object(), device=CPU)
-    eng = tq.sssp(g, [0], device=CPU)
+    # dropping and the fused backend are ported: this engine builds
+    eng = tq.sssp(g, [0], backend="fused", drop=tdr.DropConfig(mode="det", p=0.5), device=CPU)
     for name in ("register_slot", "deregister_slot", "export_state", "import_state", "set_drop_params"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             getattr(eng, name)(0)
+    with pytest.raises(NotImplementedError, match="governor slice"):
+        eng.set_drop_params(0)
+    st = eng.state
+    with pytest.raises(NotImplementedError, match="VDC slice"):
+        fused_sweep(1, st.active[:, None].expand(1, 4), st.active, st.cur, st.cur, st.active[:, None].expand(1, 4),
+                    st.dstore, st.dstore, new=st.cur, **teng._ell_operands(eng.cfg, st.cur, eng.g))
 
 
 # ------------------------------------------------------------------ hygiene
@@ -351,9 +356,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib'))"
         " or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "print(' '.join(n for n in sys.modules if n.startswith('repro_torch')))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(src))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    imported = set(out.stdout.split())
+    assert len(imported) >= 23
+    # the dropping / fused slice's modules are among those checked
+    assert {"repro_torch.core.bloom", "repro_torch.core.dropping", "repro_torch.core.convert",
+            "repro_torch.kernels.fused_sweep", "repro_torch.kernels.bloom"} <= imported

@@ -194,8 +194,10 @@ def test_drop_config_and_disabled_state():
     _eq(st.det_overflow, rst.det_overflow)
     _eq(st.max_iter, rst.max_iter)
     assert st.det is None and st.flt is None and st.params is None
-    with pytest.raises(NotImplementedError, match="dropping slice"):
-        tdr.make_state(cfgs[1], 3, 5)
+    # an enabled config builds its DroppedVT (Det store here), as the reference's
+    det, rdet = tdr.make_state(cfgs[1], 3, 5), rdr.make_state(rcfgs[1], 3, 5)
+    _eq_store(det.det, rdet.det)
+    assert det.flt is None and rdet.flt is None
 
 
 def test_plan_json_is_byte_identical():
