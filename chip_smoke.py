@@ -231,6 +231,39 @@ def fused_inputs(rng, q, v, d, s, semiring, drop_mode, device, *, s_det=None, m_
     return args, kw
 
 
+def lookup_inputs(rng, n: int, s: int, device):
+    """Random sorted IMAX-padded rows for ``diff_lookup``: ragged counts,
+    repeated iterations, values with -0.0 among them, and per-row query
+    iterations below, at, between and above the row's points (and IMAX)."""
+    import torch
+
+    count = np.where(rng.random(n) < 0.3, s, rng.integers(0, s + 1, size=n))
+    pts = np.sort(rng.integers(0, 40, size=(n, s)), axis=1)  # repeats on purpose
+    live = np.arange(s)[None, :] < count[:, None]
+    iters = np.where(live, pts, IMAX).astype(np.int32)
+    vals = rng.integers(-3, 4, size=(n, s)).astype(np.float32)
+    vals[rng.random((n, s)) < 0.1] = -0.0
+    pick = iters[np.arange(n), rng.integers(0, s, size=n)].astype(np.int64)
+    kind = rng.integers(0, 5, size=n)
+    qi = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                   [np.minimum(pick, 2**31 - 2) - 1, pick, pick + 1, np.full(n, -5)], np.full(n, 2**31 - 2))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    return t(iters), t(vals), t(np.clip(qi, -(2**31), 2**31 - 1).astype(np.int32))
+
+
+def same_lookup(got, want) -> float:
+    """Raise unless two ``diff_lookup`` results are bit-equal (values
+    compared as bit patterns, so -0.0 differs from +0.0)."""
+    import torch
+
+    gv, gi, gf = got
+    wv, wi, wf = want
+    if not (torch.equal(gv.view(torch.int32), wv.view(torch.int32)) and torch.equal(gi, wi)
+            and torch.equal(gf, wf)):
+        raise AssertionError("diff_lookup differs from its plain version")
+    return max(max_abs_diff(gv, wv), max_abs_diff(gi, wi), max_abs_diff(gf, wf))
+
+
 def max_abs_diff(got, want) -> float:
     """Largest ``|got - want|`` over the cells where the two differ (0.0 when
     every cell is equal, infinities included); a bool counts as 0 or 1."""
@@ -305,6 +338,7 @@ def kernel_small(device) -> dict:
     import torch
 
     from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
     from repro_torch.kernels import ell_spmv as K1
     from repro_torch.kernels import fused_sweep as K2
 
@@ -337,6 +371,27 @@ def kernel_small(device) -> dict:
                 err2 = max(err2, same_fused(got, want))
                 cases2 += 1
 
+    # K2's new= variant (VDC): the candidate comes in, nothing depends on
+    # the semiring, so one case per drop mode and shape
+    cases2n, err2n = 0, 0.0
+    for q, v, d, s in [(1, 16, 4, 4), (3, 100, 8, 16), (2, 257, 16, 16), (3, 131, 8, 32)]:
+        for mode in K2.DROP_MODES:
+            args, kw = fused_inputs(rng, q, v, d, s, "min_plus", mode, device)
+            for k in ("states", "nbr", "w", "kcarry"):
+                del kw[k]
+            kw["new"] = torch.from_numpy(rng.integers(0, 7, size=(q, v)).astype(np.float32)).to(device)
+            err2n = max(err2n, same_fused(K2.fused_sweep(*args, **kw), K2.fused_sweep_ref(*args, **kw)))
+            cases2n += 1
+
+    # K4: ragged N (no multiple of the 256-thread block), S from 1 to 32
+    # (6 takes the scalar loads), per-row and scalar query iterations
+    cases4, err4 = 0, 0.0
+    for n, s in [(1, 1), (1000, 1), (777, 6), (4097, 8), (300, 32)]:
+        iters, vals, qi = lookup_inputs(rng, n, s, device)
+        for q_arg in (qi, 7, int(iters[0, 0]) if n else 0, -1, 2**31 - 1):
+            err4 = max(err4, same_lookup(K4.diff_lookup(iters, vals, q_arg), K4.diff_lookup_ref(iters, vals, q_arg)))
+            cases4 += 1
+
     cases3, err3 = 0, 0.0
     for q, n, mbits, k in [(1, 64, 1 << 10, 2), (3, 500, 1 << 12, 4), (2, 1024, 1 << 14, 6)]:
         t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
@@ -355,6 +410,8 @@ def kernel_small(device) -> dict:
         "ell_spmv": {"max_abs_err": err1, "semirings": list(K1.SEMIRINGS)},
         "fused_sweep": {"cases": cases2, "bit_equal": True, "max_abs_err": err2,
                         "pr_sum_expand_max_abs_err": expand_err},
+        "fused_sweep_new": {"cases": cases2n, "bit_equal": True, "max_abs_err": err2n},
+        "diff_lookup": {"cases": cases4, "bit_equal": True, "max_abs_err": err4},
         "bloom_query": {"cases": cases3, "bit_equal": True, "max_abs_err": err3},
     }
 
@@ -459,10 +516,26 @@ def make_data(num_vertices: int, num_edges: int, num_updates: int, chunk: int, n
     return graph, stream, sources, time.perf_counter() - t0
 
 
-def nbytes_split(eng) -> tuple[int, int]:
-    """(difference-store bytes, DroppedVT bytes) of ``nbytes()``."""
+def nbytes_split(eng) -> list[int]:
+    """``nbytes()`` and its parts: [D-store bytes, J-store bytes, DroppedVT
+    bytes, total]."""
     diff = int(eng.state.dstore.count.sum()) * 8
-    return diff, eng.nbytes() - diff
+    join = 0 if eng.state.jstore is None else int(eng.state.jstore.count.sum()) * 8
+    total = eng.nbytes()
+    return [diff, join, total - diff - join, total]
+
+
+class EvictionTap:
+    """Wraps ``diffstore.upsert_rows_`` (the J store's upsert) to sum the
+    evictions it returns on the device; it calls the function unchanged."""
+
+    def __init__(self, fn):
+        self.fn, self.total = fn, None
+
+    def __call__(self, *args, **kw):
+        n = self.fn(*args, **kw)
+        self.total = n if self.total is None else self.total + n
+        return n
 
 
 class Capture:
@@ -479,10 +552,17 @@ class Capture:
         return self.fn(i, *args, **kw)
 
 
+SCRATCH_MISMATCH_NOTE = ("the reference's VDC differs from SCRATCH under deletions; the port "
+                         "reproduces it bit for bit (ROADMAP Queue 3, 'VDC is not exact under "
+                         "deletions')")
+
+
 def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int, chunk: int,
-               counters, drop=None, profile_path: Path | None = None, capture: Capture | None = None):
+               counters, drop=None, mode: str = "jod", profile_path: Path | None = None,
+               capture: Capture | None = None):
     """Drive ``queries.sssp`` on ``graph`` (mutated) through
-    ``apply_updates_batched`` and hold the answers against SCRATCH.
+    ``apply_updates_batched`` and hold the answers against SCRATCH (JOD:
+    equal; VDC: mismatches counted, see :data:`SCRATCH_MISMATCH_NOTE`).
 
     The launch counts of the kernel modules in ``counters`` are zeroed just
     before the engine is built and read just after the timed chunks; one
@@ -490,21 +570,69 @@ def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int
     """
     import torch
 
-    from repro_torch.core import engine as E
+    from repro_torch.core import diffstore as ds
     from repro_torch.core import queries as tq
     from repro_torch.core.scratch import scratch_like
 
     torch.cuda.reset_peak_memory_stats()
-    for K in counters:
-        K.reset_launches()  # ---- the main path starts here
-    t0 = time.perf_counter()
-    eng = tq.sssp(graph, sources, backend=backend, drop=drop, max_iters=48, batch_capacity=chunk,
-                  store_capacity=16, device=device)
-    init_s = time.perf_counter() - t0
+    tap = EvictionTap(ds.upsert_rows_)
+    ds.upsert_rows_ = tap
+    try:
+        for K in counters:
+            K.reset_launches()  # ---- the main path starts here
+        t0 = time.perf_counter()
+        eng = tq.sssp(graph, sources, backend=backend, drop=drop, mode=mode, max_iters=48,
+                      batch_capacity=chunk, store_capacity=16, device=device)
+        init_s = time.perf_counter() - t0
+        out = drive_chunks(eng, stream, num_updates=num_updates, chunk=chunk, counters=counters,
+                           profile_path=profile_path, capture=capture)
+    finally:
+        ds.upsert_rows_ = tap.fn
+    out.update(backend=backend, engine_mode=mode, drop=None if drop is None else dataclass_dict(drop),
+               engine_init_s=init_s)
+    if mode == "vdc":
+        out["jstore_evictions"] = 0 if tap.total is None else int(tap.total)
+        out["jstore_rows_full"] = int((eng.state.jstore.count >= eng.cfg.jstore_capacity).sum())
+        out["jstore_capacity"] = eng.cfg.jstore_capacity
+        out["jstore_rows"] = int(eng.state.jstore.count.numel())
+
+    ans = eng.answers()
+    if ans.shape != (len(sources), graph.num_vertices) or np.isnan(ans).any():
+        raise AssertionError(f"bad answers: shape {ans.shape}")
+    if not all(ans[q, s] == 0.0 for q, s in enumerate(sources)):
+        raise AssertionError("a source is not at distance 0")
+    want = scratch_like(eng.cfg, eng.graph, eng.state.init, device=device).answers()
+    if mode == "jod":
+        np.testing.assert_array_equal(ans, want)
+        out["equals_scratch"] = True
+    else:
+        bad = np.argwhere(ans != want)
+        out["scratch_mismatches"] = int(bad.shape[0])
+        out["scratch_mismatch_first"] = [
+            {"q": int(q), "v": int(v), "engine": float(ans[q, v]), "scratch": float(want[q, v])}
+            for q, v in bad[:5]
+        ]
+        out["scratch_mismatch_note"] = SCRATCH_MISMATCH_NOTE
+    return out, eng
+
+
+def stats_row(st) -> list:
+    """One chunk's ``MaintainStats`` as plain numbers, for comparing runs."""
+    return [np.asarray(x).tolist() for x in st]
+
+
+def drive_chunks(eng, stream, *, num_updates: int, chunk: int, counters, profile_path, capture):
+    """The timed chunks (chunk 0 is warm-up), then one profiled chunk."""
+    import torch
+
+    from repro_torch.core import engine as E
+
     init_iters = int(eng.last_stats.iters_run)
-    totals = {k: int(getattr(eng.last_stats, k)) for k in ("repairs", "dropped", "det_overflow")}
+    fields = ("repairs", "dropped", "det_overflow", "jwritten")
+    totals = {k: int(getattr(eng.last_stats, k)) for k in fields}
+    chunk_stats = [stats_row(eng.last_stats)]
     lat, iters = [], []
-    peak = list(nbytes_split(eng)) + [eng.nbytes()]
+    peak = nbytes_split(eng)
     n_chunks = num_updates // chunk
     for c, lo in enumerate(range(0, num_updates, chunk)):
         if capture is not None and c == n_chunks - 1:
@@ -517,9 +645,10 @@ def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int
                 E.fused_sweep = capture.fn
         lat.append(time.perf_counter() - t0)
         iters.append(int(st.iters_run))
+        chunk_stats.append(stats_row(st))
         for k in totals:
             totals[k] += int(getattr(st, k))
-        peak = [max(a, b) for a, b in zip(peak, list(nbytes_split(eng)) + [eng.nbytes()])]
+        peak = [max(a, b) for a, b in zip(peak, nbytes_split(eng))]
     launches = {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in counters}  # ---- and ends here
 
     traced = {}
@@ -536,39 +665,30 @@ def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int
         traced["device_idle_share"] = 1.0 - traced["device_busy_ms"] / traced["chunk_wall_ms"]
     else:
         st = eng.apply_updates_batched(stream[num_updates:])
+    chunk_stats.append(stats_row(st))
     for k in totals:
         totals[k] += int(getattr(st, k))
-    peak = [max(a, b) for a, b in zip(peak, list(nbytes_split(eng)) + [eng.nbytes()])]
-
-    ans = eng.answers()
-    if ans.shape != (len(sources), graph.num_vertices) or np.isnan(ans).any():
-        raise AssertionError(f"bad answers: shape {ans.shape}")
-    if not all(ans[q, s] == 0.0 for q, s in enumerate(sources)):
-        raise AssertionError("a source is not at distance 0")
-    sc = scratch_like(eng.cfg, eng.graph, eng.state.init, device=device)
-    np.testing.assert_array_equal(ans, sc.answers())
+    peak = [max(a, b) for a, b in zip(peak, nbytes_split(eng))]
 
     timed = lat[1:]  # chunk 0 is warm-up
     return {
-        "backend": backend,
-        "drop": None if drop is None else dataclass_dict(drop),
-        "engine_init_s": init_s,
         "init_sweep_iters": init_iters,
         "updates_per_s": chunk * len(timed) / sum(timed),
         "chunk_latency_ms": [x * 1e3 for x in lat],
         "p50_chunk_ms": float(np.percentile(timed, 50)) * 1e3,
         "p99_chunk_ms": float(np.percentile(timed, 99)) * 1e3,
         "sweep_iters_per_chunk": iters,
-        "peak_nbytes": peak[2],
+        "peak_nbytes": peak[3],
         "peak_diff_nbytes": peak[0],
-        "peak_droppedvt_nbytes": peak[1],
+        "peak_join_nbytes": peak[1],
+        "peak_droppedvt_nbytes": peak[2],
         **totals,
         "launches": launches,
         "launches_per_sweep_iter": {k: n / (init_iters + sum(iters)) for k, n in launches.items()},
-        "equals_scratch": True,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "traced_chunk": traced,
-    }, eng
+        "chunk_stats": chunk_stats,
+    }
 
 
 def dataclass_dict(x) -> dict:
@@ -631,15 +751,20 @@ def fused_bounds_ms(args, kw) -> tuple[float, float]:
 
     i, sched, active, cur, cur_old, stale_old, dstore, old = args
     q, v = sched.shape
-    qv, s, so, d = q * v, dstore.capacity, old.capacity, kw["nbr"].shape[1]
+    qv, s, so = q * v, dstore.capacity, old.capacity
     mode = kw["drop_mode"]
     n_sched = int(sched.sum())
     n_cur = int(ds.has_at(dstore, i).sum())
     n_old = int(ds.has_at(old, i).sum())
-    uses_w = kw["semiring"] in ("min_plus", "pr_sum")
-    # states, adjacency, active, cur + cur_old (+ kcarry), sched + stale_old
-    rd = q * (v + 1) * 4 + v * d * 4 * (2 if uses_w else 1) + q
-    rd += qv * 4 * (2 if kw["kcarry"].data_ptr() == cur.data_ptr() else 3) + qv * 2
+    if kw.get("new") is not None:
+        # the new= variant: the candidate, active, cur + cur_old, sched + stale_old
+        rd = qv * 4 + q + qv * 4 * 2 + qv * 2
+    else:
+        d = kw["nbr"].shape[1]
+        uses_w = kw["semiring"] in ("min_plus", "pr_sum")
+        # states, adjacency, active, cur + cur_old (+ kcarry), sched + stale_old
+        rd = q * (v + 1) * 4 + v * d * 4 * (2 if uses_w else 1) + q
+        rd += qv * 4 * (2 if kw["kcarry"].data_ptr() == cur.data_ptr() else 3) + qv * 2
     wr = qv * (4 + 4 + 4 + 7)  # cur, old, evicted_iter, seven masks
     if mode != "none":
         rd += v * 4 + q * 17  # degree, params
@@ -678,6 +803,7 @@ def fused_real(capture: Capture) -> dict:
     torch.cuda.empty_cache()
     bound, floor = fused_bounds_ms(args, kw)
     out = {
+        "form": "new=" if kw.get("new") is not None else "expand",
         "i": args[0],
         "scheduled": int(args[1].sum()),
         "max_abs_err": err,
@@ -744,6 +870,47 @@ def bloom_real(eng) -> dict:
     }
 
 
+def lookup_bound_ms(n: int, s: int, found: int) -> float:
+    """Least time for one ``diff_lookup`` at 3.35 TB/s: each row's S
+    iterations read, one value gathered for each of the ``found`` rows that
+    hold a point at or before the query (the others write 0 and read
+    none), val + iter + found written."""
+    return (n * s * 4 + found * 4 + n * 9) / HBM_BYTES_PER_S * 1e3
+
+
+def lookup_real(iters, vals, i: int) -> dict:
+    """K4 on ``[N, S]`` store rows at the main path's size, against its
+    plain version (bit-equal), timed; ``torch.searchsorted`` (right=True),
+    which computes the index half only, is timed beside it as a note."""
+    import torch
+
+    from repro_torch.kernels import diff_lookup as K4
+
+    n, s = iters.shape
+    call = lambda: K4.diff_lookup(iters, vals, i)  # noqa: E731
+    plain = lambda: K4.diff_lookup_ref(iters, vals, i)  # noqa: E731
+    got = call()
+    err = same_lookup(got, plain())
+    found = int(got[2].sum())
+    del got
+    torch.cuda.empty_cache()
+    qcol = torch.full((n, 1), i, dtype=torch.int32, device=iters.device)
+    search = lambda: torch.searchsorted(iters, qcol, right=True)  # noqa: E731
+    return {
+        "n": n,
+        "s": s,
+        "i": i,
+        "found": found,
+        "max_abs_err": err,
+        "ms": time_ms(call),
+        "plain_ms": time_ms(plain, reps=5),
+        "bound_ms": lookup_bound_ms(n, s, found),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "searchsorted_index_only_ms": time_ms(search, reps=5),
+    }
+
+
 def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
                chunk: int) -> tuple[dict, dict]:
     """The slice at full width: ``backend="fused"`` with no dropping,
@@ -753,6 +920,7 @@ def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
 
     from repro_torch.core import engine as E
     from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
     from repro_torch.kernels import ell_spmv as K1
     from repro_torch.kernels import fused_sweep as K2
 
@@ -764,10 +932,11 @@ def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
         capture = Capture(E.fused_sweep)
         out, eng = run_stream(
             graph, sources, stream, device=device, backend="fused", drop=drop_policy(mode, 1 << 26),
-            num_updates=num_updates, chunk=chunk, counters=(K1, K2, K3), capture=capture,
+            num_updates=num_updates, chunk=chunk, counters=(K1, K2, K3, K4), capture=capture,
             profile_path=OUT_DIR / f"chip_smoke_fused_{mode}_chunk_trace.json",
         )
         out["graph_copy_s"] = copy_s
+        del out["chunk_stats"]
         iters_run = out["init_sweep_iters"] + sum(out["sweep_iters_per_chunk"])
         if out["launches"]["fused_sweep"] != iters_run:
             raise AssertionError(f"{mode}: {out['launches']['fused_sweep']} fused_sweep launches "
@@ -781,6 +950,8 @@ def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
         if mode == "prob":
             real["bloom_query"] = bloom_real(eng)
             out["bloom_fill_fraction"] = real["bloom_query"]["fill_fraction"]
+        if mode == "det":
+            real["diff_lookup_det"] = det_lookup_real(eng)
         if mode != "none":
             out["peak_nbytes_vs_none"] = out["peak_nbytes"] / runs["none"]["peak_nbytes"]
         del eng  # the captured call holds what the kernel timing needs
@@ -792,6 +963,176 @@ def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
         del capture
         torch.cuda.empty_cache()
     return runs, real
+
+
+def det_lookup_real(eng) -> dict:
+    """K4 through ``dropping.latest_dropped_le`` on the det run's Det store
+    (N = Q·V rows, S = S_d), at the highest registered iteration."""
+    import torch
+
+    from repro_torch.core import dropping as dr
+    from repro_torch.kernels import diff_lookup as K4
+
+    det = eng.state.drop.det
+    q, v, s = det.iters.shape
+    i = int(eng.state.drop.max_iter)
+    iters, vals = det.iters.view(q * v, s), det.vals.view(q * v, s)
+    found, it = dr.latest_dropped_le(eng.state.drop, i, v)
+    _, want_it, want_found = K4.diff_lookup_ref(iters, vals, i)
+    if not (torch.equal(found.view(-1), want_found) and torch.equal(it.view(-1), want_it)):
+        raise AssertionError("latest_dropped_le differs from the plain lookup on the Det store")
+    del found, it, want_it, want_found
+    out = lookup_real(iters, vals, i)
+    out["via"] = "dropping.latest_dropped_le"
+    return out
+
+
+def vdc_leaves(state) -> dict:
+    """Every tensor leaf of a VDC engine state (``state_leaves`` plus the J
+    store and ``join_mat``)."""
+    out = state_leaves(state)
+    out.update({f"jstore/{k}": getattr(state.jstore, k) for k in ("iters", "vals", "count")})
+    out["join_mat"] = state.join_mat
+    return out
+
+
+def main_vdc(graph0, sources, stream, jod_peak_nbytes: int, *, device, num_updates: int,
+             chunk: int) -> tuple[dict, dict]:
+    """VDC at full size: the ``main`` path's graph, sources and stream with
+    ``mode="vdc"`` (S_J = 8), ``backend="coo"`` and ``"fused"``.  The two
+    runs must end leaf-equal (D store, J store, ``cur``) with equal stats,
+    launch ``diff_lookup`` twice per sweep iteration (and ``fused_sweep``
+    once on ``fused``, ``ell_spmv`` never).  Prints one ``main_vdc`` line
+    per run."""
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
+
+    runs, real, first = {}, {}, None
+    for backend in ("coo", "fused"):
+        graph = copy_graph(graph0)
+        capture = Capture(E.fused_sweep) if backend == "fused" else None
+        out, eng = run_stream(
+            graph, sources, stream, device=device, backend=backend, mode="vdc",
+            num_updates=num_updates, chunk=chunk, counters=(K1, K2, K3, K4), capture=capture,
+            profile_path=OUT_DIR / f"chip_smoke_vdc_{backend}_chunk_trace.json",
+        )
+        iters_run = out["init_sweep_iters"] + sum(out["sweep_iters_per_chunk"])
+        want = {"diff_lookup": 2 * iters_run, "fused_sweep": iters_run if backend == "fused" else 0,
+                "ell_spmv": 0}
+        for k, n in want.items():
+            if out["launches"][k] != n:
+                raise AssertionError(f"vdc/{backend}: {out['launches'][k]} {k} launches, want {n} "
+                                     f"for {iters_run} sweep iterations")
+        out["peak_nbytes_vs_jod"] = out["peak_nbytes"] / jod_peak_nbytes
+        leaves = {k: x.cpu() for k, x in vdc_leaves(eng.state).items()}
+        chunk_stats = out.pop("chunk_stats")
+        if first is None:
+            first = (leaves, chunk_stats)
+            st = eng.state.jstore  # the store as the run leaves it: the next chunk's input
+            q, e, sj = st.iters.shape
+            real["diff_lookup"] = lookup_real(st.iters.view(q * e, sj), st.vals.view(q * e, sj), 2)
+        else:
+            same_leaves(leaves, first[0], "vdc fused vs coo")
+            if chunk_stats != first[1]:
+                raise AssertionError("vdc fused vs coo: MaintainStats differ")
+            out["equals_coo_run"] = True
+        del eng, leaves
+        torch.cuda.empty_cache()
+        if capture is not None:
+            real["fused_sweep_new"] = fused_real(capture)
+            del capture
+            torch.cuda.empty_cache()
+        runs[backend] = out
+        emit("main_vdc", num_vertices=graph0.num_vertices, queries=len(sources), chunk=chunk, **out)
+    return runs, real
+
+
+def parity_vdc(device, num_vertices: int = 1 << 16) -> dict:
+    """VDC ``coo`` against VDC ``fused`` (K2's new= variant) for the four
+    semirings x three drop modes on a short batched stream: every state
+    leaf (J store and ``join_mat`` included) and every ``MaintainStats``
+    (``pr_sum`` too: the COO sum adds in one fixed order); then one run with
+    mixed ``join_rows`` and a ``set_join_store`` flip and back."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import queries as tq
+    from repro_torch.core import plan as qplan
+    from repro_torch.core.graph import DynamicGraph
+    from repro_torch.core.session import engine_config_for
+
+    rng = np.random.default_rng(SEED + 4)
+    num_edges = round(num_vertices * PATENTS_E / PATENTS_V)
+    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), 96, 0.2, rng)
+    both = np.concatenate([initial, initial[:, [1, 0, 2]]])
+    _, first = np.unique(both[:, 0] * num_vertices + both[:, 1], return_index=True)
+    sym_initial = both[np.sort(first)]
+    sym_stream = [x for (u, v, lbl, w, sg) in stream for x in ((u, v, lbl, w, sg), (v, u, lbl, w, sg))]
+    sources = pick_sources(DynamicGraph(num_vertices, initial), 8, rng)
+    kw = dict(batch_capacity=32, device=device, mode="vdc")
+    cells = {
+        "min_plus": (initial, stream, lambda g, be, dp: tq.sssp(g, sources, max_iters=48,
+                                                                backend=be, drop=dp, **kw)),
+        "min_hop": (initial, stream, lambda g, be, dp: tq.khop(g, sources, k=6, backend=be,
+                                                               drop=dp, **kw)),
+        "min_label": (sym_initial, sym_stream, lambda g, be, dp: tq.wcc(g, backend=be, drop=dp,
+                                                                        **kw)),
+        "pr_sum": (initial, stream, lambda g, be, dp: tq.pagerank(g, iters=10, backend=be,
+                                                                  drop=dp, **kw)),
+    }
+
+    def run(engines, log):
+        iters = [int(engines["fused"].last_stats.iters_run)]
+        rows = {be: [stats_row(e.last_stats)] for be, e in engines.items()}
+        for lo in range(0, len(log), 32):
+            for be, e in engines.items():
+                rows[be].append(stats_row(e.apply_updates_batched(log[lo : lo + 32])))
+            iters.append(int(engines["fused"].last_stats.iters_run))
+        return iters, rows
+
+    out = {}
+    for semiring, (edges, log, build) in cells.items():
+        for mode in ("none", "det", "prob"):
+            drop = drop_policy(mode, 1 << 20)
+            engines = {be: build(DynamicGraph(num_vertices, edges), be, drop) for be in ("coo", "fused")}
+            iters, rows = run(engines, log)
+            got, want = (vdc_leaves(engines[be].state) for be in ("fused", "coo"))
+            same_leaves(got, want, f"{semiring}/{mode}")
+            if rows["fused"] != rows["coo"]:
+                raise AssertionError(f"{semiring}/{mode}: MaintainStats differ")
+            out[f"{semiring}/{mode}"] = {"leaf_equal": True, "sweep_iters": iters,
+                                         "jwritten": int(engines["fused"].last_stats.jwritten)}
+
+    # mixed join_rows (slots 1 and 4 recompute their messages on demand) and
+    # a set_join_store flip of slot 0 and back, coo against fused
+    join_rows = [q not in (1, 4) for q in range(len(sources))]
+    plans = [qplan.sssp(s, max_iters=48) for s in sources]
+    init = np.stack([p.build_init(num_vertices) for p in plans])
+    engines = {}
+    for be in ("coo", "fused"):
+        cfg = engine_config_for(plans[0], num_queries=len(plans), num_vertices=num_vertices,
+                                mode="vdc", backend=be)
+        engines[be] = E.DiffIFE(cfg, DynamicGraph(num_vertices, initial), init, batch_capacity=32,
+                                join_rows=join_rows, device=device)
+    iters, rows = run(engines, stream[:64])
+    freed = {be: e.set_join_store(0, False) for be, e in engines.items()}
+    back = {be: e.set_join_store(0, True) for be, e in engines.items()}
+    more_iters, more_rows = run(engines, stream[64:])
+    if freed["coo"] != freed["fused"] or freed["coo"] <= 0 or set(back.values()) != {0}:
+        raise AssertionError(f"set_join_store: freed {freed}, back {back}")
+    same_leaves(vdc_leaves(engines["fused"].state), vdc_leaves(engines["coo"].state), "mixed join_rows")
+    if rows["fused"] != rows["coo"] or more_rows["fused"] != more_rows["coo"]:
+        raise AssertionError("mixed join_rows: MaintainStats differ")
+    per_op = engines["fused"].nbytes_per_operator()
+    if any(per_op[q]["join"] for q in (1, 4)):
+        raise AssertionError("a slot without a materialized Join holds J bytes")
+    out["mixed_join_rows"] = {"leaf_equal": True, "join_rows": join_rows, "freed_slot0": freed["coo"],
+                              "sweep_iters": iters + more_iters[1:],
+                              "join_nbytes": [per_op[q]["join"] for q in range(len(sources))]}
+    return {"num_vertices": num_vertices, "num_edges_initial": int(initial.shape[0]), "cells": out}
 
 
 def parity_fused(device, num_vertices: int = 1 << 16) -> dict:
@@ -878,6 +1219,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
     from repro_torch.kernels import ell_spmv as K1
     from repro_torch.kernels import fused_sweep as K2
 
@@ -892,7 +1234,7 @@ def main() -> None:
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=len(sources)) as ex:
         list(ex.map(_build.compile_source, sources))
-    for K in (K1, K2, K3):
+    for K in (K1, K2, K3, K4):
         K._lib()
     emit("build", seconds=time.perf_counter() - t0, sources=sources,
          build_s={s: _build.build_info[s]["seconds"] for s in sources},
@@ -906,8 +1248,9 @@ def main() -> None:
     graph0, stream, qsources, host_setup_s = make_data(PATENTS_V, PATENTS_E, num_updates, chunk, num_queries)
     main_out, eng = run_stream(
         copy_graph(graph0), qsources, stream, device=dev, backend="ell", num_updates=num_updates,
-        chunk=chunk, counters=(K1, K2, K3), profile_path=OUT_DIR / "chip_smoke_main_chunk_trace.json",
+        chunk=chunk, counters=(K1, K2, K3, K4), profile_path=OUT_DIR / "chip_smoke_main_chunk_trace.json",
     )
+    del main_out["chunk_stats"]
     if main_out["launches"]["ell_spmv"] == 0:
         raise AssertionError("the main path launched no ell_spmv kernel")
     emit("main", num_vertices=PATENTS_V, num_edges_initial=int(graph0.num_edges), queries=num_queries,
@@ -922,18 +1265,30 @@ def main() -> None:
     runs, real = main_fused(graph0, qsources, stream, ell_leaves, device=dev,
                             num_updates=num_updates, chunk=chunk)
     del ell_leaves
+    vdc_runs, vdc_real = main_vdc(graph0, qsources, stream, main_out["peak_nbytes"], device=dev,
+                                  num_updates=num_updates, chunk=chunk)
+    del graph0
 
     emit("parity_fused", **parity_fused(dev))
+    emit("parity_vdc", **parity_vdc(dev))
     emit("kernel_real", q=q, v=v, d=d, ell_spmv=real1,
-         fused_sweep={m: real[m] for m in ("none", "det", "prob")}, bloom_query=real["bloom_query"])
+         fused_sweep={**{m: real[m] for m in ("none", "det", "prob")},
+                      "vdc_new": vdc_real["fused_sweep_new"]},
+         bloom_query=real["bloom_query"],
+         diff_lookup={"vdc_jstore": vdc_real["diff_lookup"], "det_store": real["diff_lookup_det"]})
     emit("other_semirings", **other_semirings(dev))
 
     mp = real1["min_plus"]
     k2 = real["none"]
+    k2n = vdc_real["fused_sweep_new"]
     k3 = real["bloom_query"]
-    # launches over every main-path run: the ell engine and the three fused ones
-    launches = {k: sum(r["launches"][k] for r in (main_out, *runs.values()))
-                for k in ("ell_spmv", "fused_sweep", "bloom")}
+    k4 = vdc_real["diff_lookup"]
+    # launches over every main-path run: the ell engine, the three fused
+    # ones and the two VDC ones
+    all_runs = {"ell": main_out, **{f"fused_{m}": r for m, r in runs.items()},
+                **{f"vdc_{b}": r for b, r in vdc_runs.items()}}
+    launches = {k: sum(r["launches"][k] for r in all_runs.values())
+                for k in ("ell_spmv", "fused_sweep", "bloom", "diff_lookup")}
     print(json.dumps({"kernels": [
         {
             "name": "ell_spmv",
@@ -941,8 +1296,7 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
             "replaces": "src/repro/kernels/ell_spmv.py:96",
             "launches": launches["ell_spmv"],
-            "launches_by_run": {"ell": main_out["launches"]["ell_spmv"],
-                                **{f"fused_{m}": r["launches"]["ell_spmv"] for m, r in runs.items()}},
+            "launches_by_run": {k: r["launches"]["ell_spmv"] for k, r in all_runs.items()},
             "max_abs_err": max(r["max_abs_err"] for r in real1.values()),
             "ms": mp["ms"],
             "plain_ms": mp["plain_ms"],
@@ -966,8 +1320,10 @@ def main() -> None:
             "out_of_place_floor_ms": k2["out_of_place_floor_ms"],
             "library_ms": None,
             "drop_mode": "none",
-            "launches_by_drop_mode": {m: r["launches"]["fused_sweep"] for m, r in runs.items()},
+            "launches_by_run": {k: r["launches"]["fused_sweep"] for k, r in all_runs.items()},
             "by_drop_mode": {m: real[m] for m in ("none", "det", "prob")},
+            "new_variant": {k: k2n[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "out_of_place_floor_ms", "library_ms")},
         },
         {
             "name": "bloom_query",
@@ -981,6 +1337,22 @@ def main() -> None:
             "bound_ms": k3["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+        },
+        {
+            "name": "diff_lookup",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/diff_lookup.cu",
+            "replaces": "src/repro/kernels/diff_lookup.py:41",
+            "launches": launches["diff_lookup"],
+            "launches_by_run": {k: r["launches"]["diff_lookup"] for k, r in all_runs.items()},
+            "max_abs_err": max(k4["max_abs_err"], real["diff_lookup_det"]["max_abs_err"]),
+            "ms": k4["ms"],
+            "plain_ms": k4["plain_ms"],
+            "bound_ms": k4["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,  # no single call computes it; searchsorted (index only) is a note
+            "searchsorted_index_only_ms": k4["searchsorted_index_only_ms"],
+            "det_store": real["diff_lookup_det"],
         },
     ]}), flush=True)
     print(smi, flush=True)

@@ -7,7 +7,8 @@ as ``"drop/det_overflow"``, ``"drop/max_iter"``; the Det store as
 ``"drop_det/{iters,vals,count}"``; the Bloom filter as ``"drop_flt/bits"``
 and ``"drop_flt/num_hashes"``; the selection rows as
 ``"drop_params/{p,tau_min,tau_max,degree_sel,seed}"`` with the seed in
-uint32; the rest by field name).  These functions turn such a dict into the
+uint32; the VDC J store as ``"jstore/{iters,vals,count}"`` and its per-slot
+flags as ``"join_mat"``; the rest by field name).  These functions turn such a dict into the
 port's tensors on a device (the seed held in int64), and the port's state
 back into the same dict, so a run can move between the two packages
 mid-stream and be compared leaf by leaf.
@@ -30,10 +31,14 @@ def _t(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
+def _store(leaves: dict[str, np.ndarray], prefix: str, device) -> ds.DiffStore:
+    return ds.DiffStore(*(_t(leaves[f"{prefix}/{k}"], device) for k in ("iters", "vals", "count")))
+
+
 def _drop_state_from_numpy(leaves: dict[str, np.ndarray], device) -> dr.DropState:
     det = flt = params = None
     if "drop_det/iters" in leaves:
-        det = ds.DiffStore(*(_t(leaves[f"drop_det/{k}"], device) for k in ("iters", "vals", "count")))
+        det = _store(leaves, "drop_det", device)
     if "drop_flt/bits" in leaves:
         flt = bloom.BloomFilter(_t(leaves["drop_flt/bits"], device), int(leaves["drop_flt/num_hashes"]))
     if "drop_params/p" in leaves:
@@ -53,14 +58,12 @@ def _drop_state_from_numpy(leaves: dict[str, np.ndarray], device) -> dr.DropStat
 
 def engine_state_from_numpy(leaves: dict[str, np.ndarray], device) -> EngineState:
     """The port's :class:`EngineState` from the reference's numpy leaves
-    (JOD: no J store)."""
-    for name in ("jstore/iters", "join_mat"):
-        if name in leaves:
-            raise NotImplementedError(f"leaf {name!r} belongs to an unported configuration")
+    (the J store and ``join_mat`` where the state is VDC's)."""
     return EngineState(
-        dstore=ds.DiffStore(*(_t(leaves[f"dstore/{k}"], device) for k in ("iters", "vals", "count"))),
-        jstore=None,
+        dstore=_store(leaves, "dstore", device),
+        jstore=_store(leaves, "jstore", device) if "jstore/iters" in leaves else None,
         drop=_drop_state_from_numpy(leaves, device),
+        join_mat=_t(leaves["join_mat"], device) if "join_mat" in leaves else None,
         **{k: _t(leaves[k], device) for k in _STATE_TENSORS},
     )
 
@@ -68,6 +71,9 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray], device) -> EngineStat
 def engine_state_to_numpy(state: EngineState) -> dict[str, np.ndarray]:
     """The inverse of :func:`engine_state_from_numpy`."""
     out = {f"dstore/{k}": getattr(state.dstore, k).cpu().numpy() for k in ("iters", "vals", "count")}
+    if state.jstore is not None:
+        out.update({f"jstore/{k}": getattr(state.jstore, k).cpu().numpy() for k in ("iters", "vals", "count")})
+        out["join_mat"] = state.join_mat.cpu().numpy()
     drop = state.drop
     out["drop/det_overflow"] = drop.det_overflow.cpu().numpy()
     out["drop/max_iter"] = drop.max_iter.cpu().numpy()

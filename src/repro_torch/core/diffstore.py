@@ -144,6 +144,42 @@ def upsert(
     return DiffStore(out_iters, out_vals, out_count), evict, evicted_iter
 
 
+# rows per slice of :func:`upsert_rows_`: bounds its temporaries (each a
+# few [rows, S] tensors) whatever the number of rows written
+UPSERT_SLICE_ROWS = 1 << 22
+
+
+def upsert_rows_(store: DiffStore, i: int, write: Tensor, new_vals: Tensor) -> Tensor:
+    """:func:`upsert` written into ``store`` in place; returns the number of
+    rows that shed their oldest change point (int32, on the device), and
+    keeps nothing else of the evictions.
+
+    :func:`upsert` leaves every row whose ``write`` is False as it was, so
+    only the marked rows are gathered, upserted and scattered back, in
+    slices of at most :data:`UPSERT_SLICE_ROWS` rows: the result equals
+    ``upsert(store, i, write, new_vals)[0]`` while the temporaries stay a
+    few hundred MB even when every row is written (a sweep over a store of
+    ~1.4e9 cells would otherwise build ten full-size ones).  ``write`` and
+    ``new_vals`` have the store's key shape; the store's tensors must be
+    contiguous.
+    """
+    s = store.capacity
+    iters, vals, count = store.iters.view(-1, s), store.vals.view(-1, s), store.count.view(-1)
+    rows = write.reshape(-1).nonzero().squeeze(1)
+    new_flat = new_vals.reshape(-1)
+    evicted = torch.zeros((), dtype=torch.int32, device=rows.device)
+    for lo in range(0, rows.shape[0], UPSERT_SLICE_ROWS):
+        r = rows[lo : lo + UPSERT_SLICE_ROWS]
+        part = DiffStore(iters.index_select(0, r), vals.index_select(0, r), count.index_select(0, r))
+        ones = torch.ones(r.shape, dtype=torch.bool, device=r.device)
+        out, evict, _ = upsert(part, i, ones, new_flat.index_select(0, r))
+        iters.index_copy_(0, r, out.iters)
+        vals.index_copy_(0, r, out.vals)
+        count.index_copy_(0, r, out.count)
+        evicted += evict.sum(dtype=torch.int32)
+    return evicted
+
+
 def remove_at(store: DiffStore, i: Tensor | int, mask: Tensor) -> DiffStore:
     """Remove the change point at exactly iteration ``i`` where ``mask``.
 

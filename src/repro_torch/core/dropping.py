@@ -12,8 +12,7 @@ The port of ``repro/core/dropping.py``.  Two components, as in the paper:
 
 Selection parameters are per query (``[Q]`` rows in :class:`DropParams`);
 the DroppedVT representation and its capacities are session-level.
-``select_stored_to_drop`` and ``latest_dropped_le`` come with the governor
-and access-path slices of the port.
+``select_stored_to_drop`` comes with the governor slice of the port.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ import torch
 
 from repro_torch.core import bloom as bloom_lib
 from repro_torch.core import diffstore as ds
+from repro_torch.kernels.diff_lookup import diff_lookup
 
 Tensor = torch.Tensor
 
@@ -244,3 +244,23 @@ def dropped_at(state: DropState, i: int, num_vertices: int) -> Tensor:
         salt = torch.arange(qn, dtype=torch.int32, device=dev)[:, None]
         return bloom_lib.query(state.flt, v_ids, i, salt=salt)
     raise ValueError("dropped_at called with dropping disabled")
+
+
+def latest_dropped_le(state: DropState, i: int, num_vertices: int) -> tuple[Tensor, Tensor]:
+    """(found, iter) [Q, V] of the latest dropped VT at iteration ≤ i.
+
+    Paper's AccessDᵢᵛWithDrops step 2.  Det-Drop looks the sorted Det rows
+    up through the ``diff_lookup`` kernel (``[Q·V, S_d]`` rows, scalar i);
+    Prob-Drop probes every iteration from i down to 0 (§5.1.2) and takes
+    the highest hit.
+    """
+    if state.det is not None:
+        q, v, s = state.det.iters.shape
+        _, it, found = diff_lookup(state.det.iters.reshape(q * v, s), state.det.vals.reshape(q * v, s), i)
+        return found.view(q, v), it.view(q, v)
+    if state.flt is not None:
+        hits = torch.stack([dropped_at(state, j, num_vertices) for j in range(i + 1)], dim=-1)
+        found = hits.any(dim=-1)
+        last = i - torch.argmax(hits.flip(-1).to(torch.uint8), dim=-1)  # highest j with a hit
+        return found, torch.where(found, last, -1).to(torch.int32)
+    raise ValueError("dropping disabled")

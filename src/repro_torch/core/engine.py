@@ -1,14 +1,18 @@
 """Differential IFE engine — the paper's maintenance procedure, dense, in PyTorch.
 
-The port of ``repro/core/engine.py`` for one configuration of it: JOD mode
+The port of ``repro/core/engine.py`` for one device: JOD mode
 (Join-On-Demand, §4: no per-edge join store, messages are recomputed from
-in-neighbour states every iteration), one device, partial dropping (§5:
-Det-Drop or Prob-Drop, Random or Degree selection) or none, and one of
-three backends: ``coo`` (scatter-reduce), ``ell`` (the CUDA ``ell_spmv``
-kernel as the aggregator) or ``fused`` (the CUDA ``fused_sweep`` kernel: the
-whole per-vertex iteration in one launch).  VDC mode, the query-slot pool
-and the vertex-sharded sweep raise :class:`NotImplementedError` until their
-slices of the port land (ROADMAP Queue 1 item 3).
+in-neighbour states every iteration) or VDC mode (the Join operator's
+differences are stored per edge in the ``[Q, E_cap, S_J]`` J store and the
+aggregator reads them; ``join_mat`` turns the store off per query slot),
+partial dropping (§5: Det-Drop or Prob-Drop, Random or Degree selection) or
+none, and one of three backends: ``coo`` (scatter-reduce), ``ell`` (the CUDA
+``ell_spmv`` kernel as the aggregator, JOD only) or ``fused`` (the CUDA
+``fused_sweep`` kernel: the whole per-vertex iteration in one launch; in VDC
+it takes the aggregated candidate).  The J store's lookups go through the
+CUDA ``diff_lookup`` kernel.  The query-slot pool and the vertex-sharded
+sweep raise :class:`NotImplementedError` until their slices of the port land
+(ROADMAP Queue 1 item 3).
 
 Timestamps are eager-merged (§4.2) so each (query, vertex) holds a 1-D sorted
 list of (iteration, state) change points; negative multiplicities are implied
@@ -32,8 +36,10 @@ here it is a host loop that reads the loop scalars (``live``, ``horizon``,
 
 Every function below is pure in the engine state: a sweep builds new store
 tensors and leaves its input state as it was, which is how the pre-update
-store stays frozen for δ detection.  :func:`batched_step` updates the graph
-arrays in place, where the reference donates them.
+store stays frozen for δ detection.  The one in-place store is the J store,
+which a sweep clones once and then updates row by row (see
+:func:`_maintain_core`).  :func:`batched_step` updates the graph arrays in
+place, where the reference donates them.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from repro_torch.core import diffstore as ds
 from repro_torch.core import dropping as dr
 from repro_torch.core.graph import DynamicGraph, EllIndex, EllOverflow, GraphSnapshot
 from repro_torch.core.semiring import Semiring, reduce_pair
+from repro_torch.kernels.diff_lookup import diff_lookup
 from repro_torch.kernels.ell_spmv import ell_spmv
 from repro_torch.kernels.fused_sweep import fused_sweep
 from repro_torch.obs import trace as obs_trace
@@ -135,6 +142,7 @@ class EngineConfig:
     semiring: Semiring
     mode: str = "jod"  # "vdc" | "jod"
     store_capacity: int = 16  # S: change points per (q, v)
+    jstore_capacity: int = 8  # S_J: per-edge change points (vdc only)
     drop: dr.DropConfig = dataclasses.field(default_factory=dr.DropConfig)
     # PageRank: edge weight is alpha / outdeg(src), recomputed from degrees so
     # deletions retune every sibling message (dirty mask covers them).
@@ -153,11 +161,6 @@ class EngineConfig:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.backend == "ell" and self.mode != "jod":
             raise ValueError("backend='ell' realizes JOD; VDC reads the J store")
-        if self.mode == "vdc":
-            raise NotImplementedError(
-                "mode='vdc' (the per-edge J store) is not ported yet: it comes "
-                "with the VDC slice of the port (ROADMAP Queue 1 item 3(e))"
-            )
 
 
 class EngineState(NamedTuple):
@@ -168,7 +171,9 @@ class EngineState(NamedTuple):
     cur: Tensor  # f32 [Q, V] — exact values at the last swept iteration
     repair_counts: Tensor  # int32 [Q, V] — dropped-diff recomputations (Fig 6b)
     active: Tensor  # bool [Q] — live query slots
-    join_mat: Tensor | None = None  # bool [Q] — per-slot Join materialization (vdc)
+    join_mat: Tensor | None = None  # bool [Q] — per-slot Join materialization (vdc):
+    # False = that slot's join differences are dropped completely and its
+    # messages recompute on demand (JOD) inside the VDC engine
 
 
 # Per-iteration probe depth: sweep iterations beyond this fold into the last bin.
@@ -237,7 +242,11 @@ def aggregate(cfg: EngineConfig, msgs: Tensor, cur: Tensor, g: GraphArrays) -> T
     """D_i from J_i (+ carry of D_{i-1}): the Min/Sum operator. [Q, V]
 
     Empty segments read +inf under min and 0 under sum, as the reference's
-    ``segment_min``/``segment_sum`` fill them.
+    ``segment_min``/``segment_sum`` fill them.  The sum adds each segment
+    in one fixed order (the edges sorted by destination, stably): a
+    scatter-add's atomics on the card would add in another order on every
+    run, so two runs of one stream (VDC's ``coo`` and ``fused``) would part.
+    On the CPU the order is the scatter-add's own, edge by edge.
     """
     sr = cfg.semiring
     q, v = msgs.shape[0], cfg.num_vertices
@@ -246,8 +255,10 @@ def aggregate(cfg: EngineConfig, msgs: Tensor, cur: Tensor, g: GraphArrays) -> T
         idx = g.dst.long()[None, :].expand(q, -1)
         agg.scatter_reduce_(1, idx, msgs, "amin", include_self=True)
     else:
-        agg = torch.zeros((q, v), dtype=msgs.dtype, device=msgs.device)
-        agg.index_add_(1, g.dst, msgs)
+        order = torch.sort(g.dst, stable=True).indices
+        lengths = torch.bincount(g.dst, minlength=v).expand(q, -1).contiguous()
+        agg = torch.segment_reduce(msgs.index_select(1, order), "sum", lengths=lengths, axis=1,
+                                   unsafe=True)
     if sr.carry_prev:
         return reduce_pair(sr, agg, cur)
     return agg + torch.full_like(agg, sr.base)
@@ -317,26 +328,36 @@ def make_state(
     num_edges: int,
     *,
     drop_rows: list[dr.DropConfig] | None = None,
+    join_rows: list[bool] | None = None,
 ) -> EngineState:
     """Engine state for ``cfg.num_queries`` slots, all active.
 
     ``drop_rows`` supplies each slot's selection parameters (default:
-    ``cfg.drop`` broadcast).
+    ``cfg.drop`` broadcast); ``join_rows`` each slot's Join materialization
+    flag (vdc only; default: every slot materializes).  VDC keeps the J
+    store ``[Q, num_edges, S_J]``.
     """
-    del num_edges  # sizes the J store, which JOD does not keep
     q, v = cfg.num_queries, cfg.num_vertices
     if tuple(init.shape) != (q, v):
         raise ValueError(f"init shape {tuple(init.shape)} != {(q, v)}")
     dev = init.device
     init = init.to(torch.float32)
+    jstore = join_mat = None
+    if cfg.mode == "vdc":
+        jstore = ds.make((q, num_edges), cfg.jstore_capacity, device=dev)
+        rows = [True] * q if join_rows is None else join_rows
+        join_mat = torch.tensor(rows, dtype=torch.bool, device=dev)
+        if tuple(join_mat.shape) != (q,):
+            raise ValueError(f"join_rows has {join_mat.shape[0]} rows for {q} slots")
     return EngineState(
         dstore=ds.make((q, v), cfg.store_capacity, device=dev),
-        jstore=None,
+        jstore=jstore,
         drop=dr.make_state(cfg.drop, q, v, per_query=drop_rows, device=dev),
         init=init,
         cur=init,
         repair_counts=torch.zeros((q, v), dtype=torch.int32, device=dev),
         active=torch.ones((q,), dtype=torch.bool, device=dev),
+        join_mat=join_mat,
     )
 
 
@@ -351,7 +372,9 @@ class _Carry(NamedTuple):
     cur_old: Tensor  # pre-update trajectory value at i-1 (store-lookup based)
     stale_old: Tensor  # bool [Q,V]: old trajectory obscured by a dropped diff
     frontier: Tensor  # bool [Q,V]: δD direct-rule schedule for iteration i
+    changed_prev: Tensor  # bool [Q,V]: value changed at i-1 (feeds the J updates)
     dstore: ds.DiffStore
+    jstore: ds.DiffStore | None  # the sweep's own clone, updated in place (vdc)
     drop: dr.DropState
     repair_counts: Tensor  # int32 [Q,V]
     horizon: Tensor  # int32 — running max change-point iteration (upper bound)
@@ -386,12 +409,15 @@ def _stitched_step(
     old_dstore: ds.DiffStore,
     active: Tensor,
     c: _Carry,
+    new: Tensor | None,
 ) -> _Step:
-    """One iteration as separate tensor passes around the aggregator."""
+    """One iteration as separate tensor passes around the aggregator
+    (``new``: VDC's candidate from the J store; None runs the JOD step)."""
     i = c.i
     q, v = c.cur.shape
     drop_on = cfg.drop.enabled()
-    new = ife_step(cfg, c.cur, g)
+    if new is None:
+        new = ife_step(cfg, c.cur, g)
 
     # dropped change points at i must be recomputed to keep `cur` exact
     # (AccessDᵢᵛWithDrops, forward form); Prob-Drop may false-positive here
@@ -443,12 +469,14 @@ def _fused_step(
     old_dstore: ds.DiffStore,
     active: Tensor,
     c: _Carry,
+    new: Tensor | None,
 ) -> _Step:
     """One iteration in one ``fused_sweep`` launch; Det rows come back from
     the kernel, Bloom inserts run here (the OR is idempotent, so the bits
-    equal the stitched path's)."""
+    equal the stitched path's).  VDC passes its candidate as ``new=``; JOD
+    runs the expand in the kernel."""
     sr, mode = cfg.semiring, cfg.drop.mode
-    kw: dict = _ell_operands(cfg, c.cur, g)
+    kw: dict = _ell_operands(cfg, c.cur, g) if new is None else {"new": new}
     if cfg.drop.enabled():
         kw.update(degree=_degree(g), params=c.drop.params)
         if mode == "det":
@@ -475,20 +503,67 @@ def _fused_step(
     )
 
 
+def _j_messages(jstore: ds.DiffStore, i: int, j0: Tensor) -> Tensor:
+    """The J store's messages at iteration i: the latest stored change point
+    ≤ i per (q, edge) through the ``diff_lookup`` kernel on the flattened
+    ``[Q·E_cap, S_J]`` rows, else the implicit J from D_0. [Q, E]"""
+    q, e, s = jstore.iters.shape
+    val, _, found = diff_lookup(jstore.iters.view(q * e, s), jstore.vals.view(q * e, s), i)
+    return torch.where(found.view(q, e), val.view(q, e), j0)
+
+
+def _vdc_candidate(
+    cfg: EngineConfig,
+    g: GraphArrays,
+    dirty_pad: Tensor,
+    j0: Tensor,
+    join_mat: Tensor,
+    c: _Carry,
+) -> tuple[Tensor, Tensor]:
+    """VDC's D_i candidate: maintain J at iteration i, then aggregate it.
+
+    An edge's message changes when its source changed at i-1 or its
+    destination was touched by δE (``dirty_pad`` has a padding column, so a
+    destination ``== V`` stays legal); a changed message is upserted into
+    the J store where the slot materializes its Join (``join_mat``) — in
+    place, into the sweep's clone.  The aggregator then reads the stored
+    messages for materializing slots and the on-demand ones otherwise.
+    Deleted edges are deliberately not masked: their stored message must be
+    overwritten with the identity.  Returns (candidate, rows written).
+    """
+    i = c.i
+    live_msgs = edge_messages(cfg, c.cur, g)
+    jprev = _j_messages(c.jstore, i, j0)
+    jmat = join_mat[:, None]
+    jdirty = c.changed_prev.index_select(1, g.src) | dirty_pad.index_select(1, g.dst)
+    jwrite = jdirty & (live_msgs != jprev) & jmat
+    ds.upsert_rows_(c.jstore, i, jwrite, live_msgs)
+    msgs = torch.where(jmat, _j_messages(c.jstore, i, j0), live_msgs)
+    return aggregate(cfg, msgs, c.cur, g), _count(jwrite)
+
+
 def _sweep_body(
     cfg: EngineConfig,
     g: GraphArrays,
     dirty: Tensor,
+    dirty_pad: Tensor | None,
+    j0: Tensor | None,
     old_dstore: ds.DiffStore,
-    active: Tensor,
+    state: EngineState,
     c: _Carry,
 ) -> _Carry:
-    """One IFE iteration of the JOD sweep, stitched or fused."""
+    """One IFE iteration of the sweep, stitched or fused (VDC: after the
+    J maintenance of :func:`_vdc_candidate`)."""
     i = c.i
+    active = state.active
     # δE direct + upper-bound rules: dirty endpoints rerun at every live i
     sched = (c.frontier | dirty) & active[:, None]
+    new, jwritten = None, c.stats.jwritten
+    if cfg.mode == "vdc":
+        new, n_jwrite = _vdc_candidate(cfg, g, dirty_pad, j0, state.join_mat, c)
+        jwritten = jwritten + n_jwrite
     step = (_fused_step if cfg.backend == "fused" else _stitched_step)(
-        cfg, g, sched, old_dstore, active, c
+        cfg, g, sched, old_dstore, active, c, new
     )
     # | changed: carry a changed vertex's own next value
     frontier_next = push_frontier(step.changed, g) | step.changed
@@ -508,6 +583,7 @@ def _sweep_body(
         written=c.stats.written + _count(step.to_store),
         removed=c.stats.removed + _count(step.vanish),
         dropped=c.stats.dropped + _count(step.to_drop),
+        jwritten=jwritten,
         sched_sizes=sched_sizes,
         frontier_sizes=frontier_sizes,
     )
@@ -518,7 +594,9 @@ def _sweep_body(
         cur_old=step.old,
         stale_old=step.stale,
         frontier=frontier_next,
+        changed_prev=step.changed,
         dstore=step.dstore,
+        jstore=c.jstore,
         drop=step.drop,
         repair_counts=c.repair_counts + step.repair.to(torch.int32),
         horizon=horizon,
@@ -532,6 +610,11 @@ def _maintain_core(
 ) -> tuple[EngineState, MaintainStats]:
     """The maintenance loop.  ``dirty`` is the per-query [Q, V] schedule seed.
 
+    VDC: the J store is cloned once here and the sweep upserts the written
+    rows into the clone in place (``diffstore.upsert_rows_``), so the input
+    state stays as it was and no iteration copies the whole ``[Q, E_cap,
+    S_J]`` store; the implicit J from D_0 (``j0``) is computed once.
+
     Continue while work is scheduled (frontier/dirty) AND the sweep can still
     mutate the store: mutations happen only at i ≤ horizon+1 (an in-neighbour
     change point at j feeds a consumer at j+1, and fresh writes at i extend
@@ -542,13 +625,21 @@ def _maintain_core(
     """
     old_dstore = state.dstore  # frozen: the sweep never writes into it
     zeros = torch.zeros(dirty.shape, dtype=torch.bool, device=dirty.device)
+    jstore = dirty_pad = j0 = None
+    if cfg.mode == "vdc":
+        jstore = ds.DiffStore(*(x.clone() for x in state.jstore))
+        pad = torch.zeros((dirty.shape[0], 1), dtype=torch.bool, device=dirty.device)
+        dirty_pad = torch.cat([dirty, pad], dim=1)
+        j0 = edge_messages(cfg, state.init, g)  # implicit J from D_0
     c = _Carry(
         i=1,
         cur=state.init,
         cur_old=state.init,
         stale_old=zeros,
         frontier=zeros,
+        changed_prev=zeros,
         dstore=state.dstore,
+        jstore=jstore,
         drop=state.drop,
         repair_counts=state.repair_counts,
         horizon=stored_horizon(state.dstore),
@@ -562,11 +653,11 @@ def _maintain_core(
         ).tolist()
         if not (live and (c.i == 1 or c.i <= max(horizon, max_iter) + 1)):
             break
-        c = _sweep_body(cfg, g, dirty, old_dstore, state.active, c)
+        c = _sweep_body(cfg, g, dirty, dirty_pad, j0, old_dstore, state, c)
     # Det-Drop record loss this sweep
     stats = c.stats._replace(det_overflow=c.drop.det_overflow - state.drop.det_overflow)
     new_state = state._replace(
-        dstore=c.dstore, drop=c.drop, cur=c.cur, repair_counts=c.repair_counts
+        dstore=c.dstore, jstore=c.jstore, drop=c.drop, cur=c.cur, repair_counts=c.repair_counts
     )
     return new_state, stats
 
@@ -593,6 +684,27 @@ def maintain(
     return _maintain_core(cfg, state, g, _dirty_2d(cfg, dirty))
 
 
+def reassemble(
+    cfg: EngineConfig, state: EngineState, g: GraphArrays, upto: int | None = None
+) -> Tensor:
+    """Repair-aware reassembly of D at iteration ``upto`` (paper's Access).
+
+    Bounded forward repair: walk iterations 1..upto; stored points are
+    exact, dropped points are recomputed from the exact previous front.
+    """
+    upto = cfg.max_iters if upto is None else upto
+    cur = state.init
+    for i in range(1, upto + 1):
+        has, val = ds.value_at(state.dstore, i)
+        if cfg.drop.enabled():
+            dropped = dr.dropped_at(state.drop, i, cfg.num_vertices)
+            new = ife_step(cfg, cur, g)
+            cur = torch.where(has, val, torch.where(dropped, new, cur))
+        else:
+            cur = torch.where(has, val, cur)
+    return cur
+
+
 def answers(cfg: EngineConfig, state: EngineState) -> Tensor:
     """Final vertex states after the last maintenance sweep. [Q, V]"""
     return state.cur
@@ -600,9 +712,12 @@ def answers(cfg: EngineConfig, state: EngineState) -> Tensor:
 
 def nbytes_accounted(cfg: EngineConfig, state: EngineState) -> int:
     """Difference-entry bytes, the paper's memory metric (8 B per diff:
-    4 B iteration + 4 B state), plus the DroppedVT per §5.1 costings (the
-    selection rows and Bloom rows of live slots only)."""
+    4 B iteration + 4 B state) of the D store and the J store, plus the
+    DroppedVT per §5.1 costings (the selection rows and Bloom rows of live
+    slots only)."""
     total = int(state.dstore.count.sum()) * 8
+    if state.jstore is not None:
+        total += int(state.jstore.count.sum()) * 8
     if cfg.drop.enabled():
         total += state.drop.nbytes_accounted(state.active)
     return total
@@ -735,6 +850,7 @@ class DiffIFE:
         batch_capacity: int = 32,
         mesh=None,
         drop_rows: list[dr.DropConfig] | None = None,
+        join_rows: list[bool] | None = None,
         device=None,
     ) -> None:
         if mesh is not None:
@@ -750,7 +866,7 @@ class DiffIFE:
         self._ell_index: EllIndex | None = None
         self.g = self._device_graph(graph.snapshot())
         init = torch.as_tensor(init, dtype=torch.float32).to(self.device)
-        self.state = make_state(cfg, init, graph.capacity, drop_rows=drop_rows)
+        self.state = make_state(cfg, init, graph.capacity, drop_rows=drop_rows, join_rows=join_rows)
         self.last_stats: MaintainStats | None = None
         # cumulative scheduled vertex-reruns across all sweeps
         self._sched_total = 0
@@ -910,7 +1026,6 @@ class DiffIFE:
     register_slot = _unported("register_slot", SLOT_POOL)
     register_slots = _unported("register_slots", SLOT_POOL)
     deregister_slot = _unported("deregister_slot", SLOT_POOL)
-    set_join_store = _unported("set_join_store", "the VDC slice of the port (ROADMAP Queue 1 item 3(e))")
     set_drop_params = _unported("set_drop_params", "the governor slice of the port (ROADMAP Queue 1 item 6)")
     export_state = _unported("export_state", SLOT_POOL)
     import_state = _unported("import_state", SLOT_POOL)
@@ -925,3 +1040,110 @@ class DiffIFE:
 
     def nbytes(self) -> int:
         return nbytes_accounted(self.cfg, self.state)
+
+    def active_slots(self) -> list[int]:
+        return torch.nonzero(self.state.active).flatten().tolist()
+
+    def _iterate_bytes(self) -> tuple[np.ndarray, int]:
+        """Per slot, the Iterate operator's bytes that vary by slot (its
+        change points and Det records) and the fixed per-live-slot part (its
+        packed Bloom row and selection row)."""
+        st = self.state
+        per = st.dstore.count.sum(dim=1).cpu().numpy() * 8  # int32 sums to int64
+        if st.drop.det is not None:
+            per = per + st.drop.det.count.sum(dim=1).cpu().numpy() * 4
+        fixed = 0
+        if self.cfg.drop.enabled():
+            if st.drop.flt is not None:
+                fixed += (st.drop.flt.num_bits + 7) // 8
+            if st.drop.params is not None:
+                fixed += dr.PARAMS_ROW_NBYTES
+        return per, fixed
+
+    def _join_bytes(self) -> np.ndarray | None:
+        if self.state.jstore is None:
+            return None
+        return self.state.jstore.count.sum(dim=1).cpu().numpy() * 8
+
+    def nbytes_per_query(self) -> dict[int, int]:
+        """slot → accounted bytes, for every live slot; they sum to
+        :meth:`nbytes`."""
+        per, fixed = self._iterate_bytes()
+        per_j = self._join_bytes()
+        if per_j is not None:
+            per = per + per_j
+        return {s: int(per[s]) + fixed for s in self.active_slots()}
+
+    def nbytes_per_operator(self) -> dict[int, dict[str, int]]:
+        """slot → {op_id → accounted bytes}: ``"iterate"`` carries the
+        change-point rows plus the slot's DroppedVT/params footprint,
+        ``"join"`` (vdc) its J-store rows.  Per slot they sum to
+        :meth:`nbytes_per_query`'s entry."""
+        per_d, fixed = self._iterate_bytes()
+        per_j = self._join_bytes()
+        out: dict[int, dict[str, int]] = {}
+        for s in self.active_slots():
+            ops = {"iterate": int(per_d[s]) + fixed}
+            if per_j is not None:
+                ops["join"] = int(per_j[s])
+            out[s] = ops
+        return out
+
+    def recompute_cost_per_query(self) -> dict[int, int]:
+        """slot → cumulative dropped-diff repair count."""
+        per = self.state.repair_counts.sum(dim=1).cpu().numpy()
+        return {s: int(per[s]) for s in self.active_slots()}
+
+    def recompute_cost_per_operator(self) -> dict[int, dict[str, int]]:
+        """slot → {op_id → cumulative recompute cost}: ``"iterate"`` is the
+        slot's repair count; ``"join"`` (vdc) the cumulative scheduled
+        vertex-rerun volume shared evenly across live slots."""
+        per = self.state.repair_counts.sum(dim=1).cpu().numpy()
+        live = self.active_slots()
+        share = self._sched_total // max(len(live), 1)
+        out: dict[int, dict[str, int]] = {}
+        for s in live:
+            ops = {"iterate": int(per[s])}
+            if self.state.jstore is not None:
+                ops["join"] = int(share)
+            out[s] = ops
+        return out
+
+    def set_join_store(self, slot: int, materialize: bool) -> int:
+        """Flip one slot's Join-operator storage policy (vdc engines).
+
+        ``materialize=False`` drops the slot's join differences completely
+        (§4): its J rows are emptied and the accounted bytes released are
+        returned; later sweeps recompute its messages on demand.
+        ``materialize=True`` resets the slot's ``cur`` to D_0 and runs one
+        sweep for that slot, which re-walks the stored trajectory and
+        rewrites its J rows; returns 0.  The J store is rebuilt, not
+        written in place, so earlier states stay as they were.
+        """
+        st = self.state
+        if not bool(st.active[slot]):
+            raise ValueError(f"slot {slot} is not active")
+        if st.jstore is None:
+            if materialize:
+                raise ValueError(
+                    "engine built without a join store (mode='jod'); build it with a "
+                    "join-materializing plan"
+                )
+            return 0  # JOD engines hold no join differences to begin with
+        if materialize == bool(st.join_mat[slot]):
+            return 0
+        join_mat = st.join_mat.clone()
+        join_mat[slot] = materialize
+        if not materialize:
+            freed = int(st.jstore.count[slot].sum()) * 8
+            iters, vals, count = (x.clone() for x in st.jstore)
+            iters[slot], vals[slot], count[slot] = ds.IMAX, 0.0, 0
+            self.state = st._replace(jstore=ds.DiffStore(iters, vals, count), join_mat=join_mat)
+            return freed
+        cur = st.cur.clone()
+        cur[slot] = st.init[slot]
+        self.state = st._replace(cur=cur, join_mat=join_mat)
+        dirty = np.zeros((self.cfg.num_queries, self.cfg.num_vertices), bool)
+        dirty[slot] = True
+        self._run_counted(dirty)
+        return 0

@@ -32,13 +32,16 @@ def engine_from_plans(
     mode: str = "jod",
     drop: dr.DropConfig | None = None,
     store_capacity: int = 16,
+    jstore_capacity: int = 8,
     backend: str = "coo",
     device=None,
 ) -> DiffIFE:
     """Dense engine for a fixed batch of same-family plans (Q slots, all
     active, no padding).  ``drop`` is the session-level DroppedVT
     representation; each plan's own ``drop`` supplies its per-query
-    selection row."""
+    selection row.  A plan whose Join materializes its trace makes the
+    engine VDC (``mode="vdc"`` asks for it too); each plan's Join policy
+    then sets its slot's ``join_mat`` flag."""
     first = plans[0]
     for p in plans[1:]:
         if p.family_key() != first.family_key():
@@ -64,6 +67,7 @@ def engine_from_plans(
         mode=mode,
         drop=spec,
         store_capacity=store_capacity,
+        jstore_capacity=jstore_capacity,
         backend=backend,
     )
     init = np.stack([p.build_init(v) for p in plans])
@@ -74,6 +78,7 @@ def engine_from_plans(
         batch_capacity=batch_capacity,
         mesh=mesh,
         drop_rows=[p.drop for p in plans],
+        join_rows=[p.join_policy() != "drop" for p in plans],
         device=device,
     )
 

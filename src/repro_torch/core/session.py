@@ -17,6 +17,7 @@ def engine_config_for(
     mode: str = "jod",
     drop: dr.DropConfig | None = None,
     store_capacity: int = 16,
+    jstore_capacity: int = 8,
     backend: str = "coo",
 ) -> EngineConfig:
     """The :class:`EngineConfig` of a plan family.
@@ -32,6 +33,7 @@ def engine_config_for(
         semiring=first_plan.semiring,
         mode=mode,
         store_capacity=store_capacity,
+        jstore_capacity=jstore_capacity,
         drop=drop or dr.DropConfig(),
         weight_from_degree=first_plan.weight_from_degree,
         alpha=first_plan.alpha,

@@ -1,11 +1,13 @@
 // Fused maintenance sweep iteration — the paper's per-vertex inner loop in
-// one launch (JOD, drop modes none / det / prob).
+// one launch (JOD or VDC, drop modes none / det / prob).
 //
 // Replaces the Pallas TPU kernel repro/kernels/fused_sweep.py::fused_sweep
 // (body _kernel).  For every query q and vertex v, at sweep iteration i:
 //
 //   1. expand: new = carry (+) (+)_d msg(states[q, nbr[v, d]], w[v, d])
-//      (csrc/ell_row.cuh, the same code as the ell_spmv kernel)
+//      (csrc/ell_row.cuh, the same code as the ell_spmv kernel); in VDC the
+//      engine aggregates the J store's messages itself and passes `new`
+//      (the reference's new= variant), and the kernel reads new[q, v]
 //   2. DroppedVT probe: dropped_here = Det row has i | Bloom query of
 //      (v, i) salted by q (csrc/bloom_hash.cuh);  repair = dropped & active & !sched
 //   3. change-point detection against the frozen pre-update store:
@@ -36,12 +38,17 @@
 // chip_smoke.py computes the bound from each run's shapes.  The work is a
 // few integer and float operations per byte: bytes bound it.
 //
+// The new= variant reads new[q, v] (4 bytes a row) in place of the
+// adjacency, the gathered states and the carry; the rest is the same.
+//
 // Design (a simple, correct first version).  One thread per vertex row; it
 // runs the expand for a block of up to 8 queries in registers (the adjacency
 // is read once, as in ell_spmv) and then stages 2-6 for each query of the
 // block on that row, with the store row in registers (static indexing over
 // MAXS = 16 or 32 columns, so no local memory).  A top-level switch picks a
-// body specialised for semiring x drop mode x MAXS.  Not yet done: staging
+// body specialised for semiring x drop mode x MAXS; the new= variant has
+// one body per drop mode x MAXS (nothing after the expand depends on the
+// semiring).  Not yet done: staging
 // store rows through shared memory for coalesced 16-byte loads, and writing
 // in place to skip unchanged rows.
 
@@ -71,6 +78,7 @@ struct FusedArgs {
   const int* nbr;         // [V, D]
   const float* w;         // [V, D]
   const float* kcarry;    // [Q, V]
+  const float* new_vals;  // [Q, V] the new= variant (VDC): null runs the expand
   // sweep inputs
   const unsigned char* sched;      // bool [Q, V]
   const unsigned char* active;     // bool [Q]
@@ -364,6 +372,31 @@ __global__ void __launch_bounds__(THREADS) fused_sweep_kernel(const FusedArgs a)
   }
 }
 
+// The new= variant: the candidate comes in as new[q, v]; one thread per
+// vertex row, stages 2-6 for every query.
+template <int MODE, int MAXS>
+__global__ void __launch_bounds__(THREADS) fused_sweep_new_kernel(const FusedArgs a) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= a.v) return;
+  const float deg = MODE == NONE ? 0.0f : a.degree[v];
+  for (int q = 0; q < a.q; ++q)
+    sweep_row<MODE, MAXS>(a, q, v, a.new_vals[(long long)q * a.v + v], deg);
+}
+
+template <int MODE, int MAXS>
+void launch_new(const FusedArgs& a, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((a.v + THREADS - 1) / THREADS);
+  fused_sweep_new_kernel<MODE, MAXS><<<blocks, THREADS, 0, stream>>>(a);
+}
+
+template <int MODE>
+void launch_new_s(const FusedArgs& a, cudaStream_t stream) {
+  if (a.s <= 16)
+    launch_new<MODE, 16>(a, stream);
+  else
+    launch_new<MODE, 32>(a, stream);
+}
+
 template <int SR, int MODE, int MAXS>
 void launch(const FusedArgs& a, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((a.v + THREADS - 1) / THREADS);
@@ -391,11 +424,19 @@ void launch_mode(const FusedArgs& a, cudaStream_t stream) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  The caller
 // checks shapes, dtypes, devices, contiguity and the limits S <= 32,
-// S_d <= 32 before calling.
+// S_d <= 32 before calling; it passes new_vals or the expand's operands.
 extern "C" int fused_sweep_launch(const FusedArgs* args, void* stream) {
   const FusedArgs& a = *args;
   if (a.q > 0 && a.v > 0) {
     const cudaStream_t st = (cudaStream_t)stream;
+    if (a.new_vals != nullptr) {
+      switch (a.mode) {
+        case DET: launch_new_s<DET>(a, st); break;
+        case PROB: launch_new_s<PROB>(a, st); break;
+        default: launch_new_s<NONE>(a, st); break;
+      }
+      return (int)cudaGetLastError();
+    }
     switch (a.semiring) {
       case ell_row::MIN_PLUS: launch_mode<ell_row::MIN_PLUS>(a, st); break;
       case ell_row::MIN_HOP: launch_mode<ell_row::MIN_HOP>(a, st); break;

@@ -13,6 +13,10 @@ maintenance procedure:
       → Det-Drop register/unregister (det mode)
       → exact-front advance (``cur``)
 
+The ``new=`` variant (VDC's partial fusion) takes the candidate ``new``
+[Q, V] in place of the expand: the VDC engine aggregates the J store's
+messages itself, and the kernel runs the stages after the expand.
+
 The CUDA kernel is ``csrc/fused_sweep.cu``; its note gives the bound and the
 design.  What stays outside, as in the reference: ``sched`` and the frontier
 push, and the Bloom *insert* (prob mode: the engine folds ``to_drop`` and
@@ -21,7 +25,7 @@ push, and the Bloom *insert* (prob mode: the engine folds ``to_drop`` and
 :func:`fused_sweep` launches the kernel for CUDA tensors and runs
 :func:`fused_sweep_ref`, the plain PyTorch version (the reference's kernel
 body written with the port's store, drop and Bloom functions), for CPU
-tensors.  The ``new=`` variant (VDC partial fusion) comes with the VDC slice.
+tensors.
 """
 
 from __future__ import annotations
@@ -87,10 +91,11 @@ def fused_sweep_ref(
     dstore: ds.DiffStore,
     old_dstore: ds.DiffStore,
     *,
-    states: Tensor,
-    nbr: Tensor,
-    w: Tensor,
-    kcarry: Tensor,
+    states: Tensor | None = None,
+    nbr: Tensor | None = None,
+    w: Tensor | None = None,
+    kcarry: Tensor | None = None,
+    new: Tensor | None = None,
     degree: Tensor | None = None,
     params: dr.DropParams | None = None,
     det: ds.DiffStore | None = None,
@@ -107,11 +112,12 @@ def fused_sweep_ref(
     path is what ``backend="fused"`` is held against, so neither is built
     from the other, and each stays an independent witness for the kernel.
 
-    ``expand`` computes stage 1; a check on the card passes the ELL kernel's
-    wrapper, whose expand is the CUDA kernel's own, so that ``pr_sum`` can
-    be compared bit for bit.
+    ``expand`` computes stage 1 unless ``new`` is given; a check on the
+    card passes the ELL kernel's wrapper, whose expand is the CUDA kernel's
+    own, so that ``pr_sum`` can be compared bit for bit.
     """
-    new = expand(states, nbr, w, kcarry, semiring=semiring, hop_cap=hop_cap)
+    if new is None:
+        new = expand(states, nbr, w, kcarry, semiring=semiring, hop_cap=hop_cap)
     q, v = sched.shape
     dev = sched.device
     v_ids = torch.arange(v, dtype=torch.int32, device=dev)[None, :]
@@ -173,7 +179,7 @@ def fused_sweep_ref(
 
 # --------------------------------------------------------------------------- the CUDA kernel
 _PTRS = (
-    "states_t", "nbr", "w", "kcarry",
+    "states_t", "nbr", "w", "kcarry", "new",
     "sched", "active", "cur", "cur_old", "stale_old",
     "d_iters", "d_vals", "d_count", "o_iters", "o_vals",
     "degree", "p", "tau_min", "tau_max", "degree_sel", "seed",
@@ -207,30 +213,43 @@ def _expect(name: str, t: Tensor | None, dtype: torch.dtype, shape: tuple) -> No
 
 
 def _check(sched, active, cur, cur_old, stale_old, dstore, old_dstore, states, nbr, w,
-           kcarry, degree, params, det, bloom_bits, drop_mode) -> list[Tensor]:
+           kcarry, new, degree, params, det, bloom_bits, drop_mode) -> list[Tensor]:
     """Validate every operand; returns the tensors to check for one device."""
-    if sched.ndim != 2 or nbr.ndim != 2:
-        raise ValueError(f"sched/nbr must be 2-D, got {tuple(sched.shape)}/{tuple(nbr.shape)}")
+    expand_ops = (states, nbr, w, kcarry)
+    if (new is not None) == any(t is not None for t in expand_ops):
+        raise ValueError("fused_sweep takes exactly one of new= or the expand's "
+                         "states/nbr/w/kcarry")
+    if sched.ndim != 2:
+        raise ValueError(f"sched must be 2-D, got {tuple(sched.shape)}")
     q, v = sched.shape
-    d = nbr.shape[1]
     s, s_old = dstore.capacity, old_dstore.capacity
     f32, i32, b = torch.float32, torch.int32, torch.bool
     _expect("sched", sched, b, (q, v))
     _expect("active", active, b, (q,))
-    for name, t in (("cur", cur), ("cur_old", cur_old), ("kcarry", kcarry)):
+    for name, t in (("cur", cur), ("cur_old", cur_old)):
         _expect(name, t, f32, (q, v))
     _expect("stale_old", stale_old, b, (q, v))
-    _expect("nbr", nbr, i32, (v, d))
-    _expect("w", w, f32, (v, d))
-    if states.dtype != f32 or states.ndim != 2 or states.shape[0] != q or states.shape[1] < v + 1:
-        raise ValueError(f"states must be float32 [Q, >=V+1], got {states.dtype} {tuple(states.shape)}")
+    if new is not None:
+        _expect("new", new, f32, (q, v))
+        tensors = [new]
+    else:
+        if nbr is None or nbr.ndim != 2:
+            raise ValueError(f"nbr must be 2-D, got {None if nbr is None else tuple(nbr.shape)}")
+        d = nbr.shape[1]
+        _expect("kcarry", kcarry, f32, (q, v))
+        _expect("nbr", nbr, i32, (v, d))
+        _expect("w", w, f32, (v, d))
+        if (states is None or states.dtype != f32 or states.ndim != 2 or states.shape[0] != q
+                or states.shape[1] < v + 1):
+            raise ValueError("states must be float32 [Q, >=V+1], got "
+                             f"{None if states is None else (states.dtype, tuple(states.shape))}")
+        tensors = [kcarry, states, nbr, w]
     _expect("dstore.iters", dstore.iters, i32, (q, v, s))
     _expect("dstore.vals", dstore.vals, f32, (q, v, s))
     _expect("dstore.count", dstore.count, i32, (q, v))
     _expect("old_dstore.iters", old_dstore.iters, i32, (q, v, s_old))
     _expect("old_dstore.vals", old_dstore.vals, f32, (q, v, s_old))
-    tensors = [sched, active, cur, cur_old, stale_old, kcarry, states, nbr, w,
-               *dstore, old_dstore.iters, old_dstore.vals]
+    tensors += [sched, active, cur, cur_old, stale_old, *dstore, old_dstore.iters, old_dstore.vals]
     if drop_mode == "none":
         return tensors
     _expect("degree", degree, f32, (v,))
@@ -263,10 +282,10 @@ def fused_sweep(
     dstore: ds.DiffStore,
     old_dstore: ds.DiffStore,
     *,
-    states: Tensor,
-    nbr: Tensor,
-    w: Tensor,
-    kcarry: Tensor,
+    states: Tensor | None = None,
+    nbr: Tensor | None = None,
+    w: Tensor | None = None,
+    kcarry: Tensor | None = None,
     new: Tensor | None = None,
     degree: Tensor | None = None,
     params: dr.DropParams | None = None,
@@ -279,29 +298,26 @@ def fused_sweep(
 ) -> FusedOut:
     """One fused maintenance iteration: a single kernel launch.
 
-    ``states`` [Q, >=V+1] (the identity in column V), ``nbr``/``w`` [V, D]
-    and ``kcarry`` [Q, V] feed the in-kernel expand; ``degree`` [V] (f32
+    Exactly one of two forms: ``states`` [Q, >=V+1] (the identity in column
+    V), ``nbr``/``w`` [V, D] and ``kcarry`` [Q, V] feed the in-kernel expand
+    (JOD), or ``new`` [Q, V] is the candidate computed outside (VDC: the
+    aggregate over the J store's messages).  ``degree`` [V] (f32
     total degree) and ``params`` feed the drop selection; ``det`` (det mode)
     or ``bloom_bits`` bool [Q, M] (prob mode) is the DroppedVT.  CUDA
     tensors launch the kernel (built on first use); CPU tensors take the
     plain version.  Anything else raises.
     """
-    if new is not None:
-        raise NotImplementedError(
-            "fused_sweep(new=...) (VDC partial fusion) is not ported yet: it "
-            "comes with the VDC slice of the port (ROADMAP Queue 1 item 3(e))"
-        )
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r}")
     if drop_mode not in DROP_MODES:
         raise ValueError(f"unknown drop mode {drop_mode!r}")
     tensors = _check(sched, active, cur, cur_old, stale_old, dstore, old_dstore, states, nbr,
-                     w, kcarry, degree, params, det, bloom_bits, drop_mode)
+                     w, kcarry, new, degree, params, det, bloom_bits, drop_mode)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    kw = dict(states=states, nbr=nbr, w=w, kcarry=kcarry, degree=degree, params=params,
+    kw = dict(states=states, nbr=nbr, w=w, kcarry=kcarry, new=new, degree=degree, params=params,
               det=det, bloom_bits=bloom_bits, bloom_hashes=bloom_hashes,
               semiring=semiring, hop_cap=hop_cap, drop_mode=drop_mode)
     if dev.type == "cpu":
@@ -312,7 +328,7 @@ def fused_sweep(
 
 
 def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, *, states,
-            nbr, w, kcarry, degree, params, det, bloom_bits, bloom_hashes, semiring,
+            nbr, w, kcarry, new, degree, params, det, bloom_bits, bloom_hashes, semiring,
             hop_cap, drop_mode) -> FusedOut:
     q, v = sched.shape
     s = dstore.capacity
@@ -322,7 +338,7 @@ def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, 
             f"the fused_sweep kernel takes store capacities up to {MAX_STORE_CAPACITY}, "
             f"got S={s}, S_d={s_det}"
         )
-    if max(q * v * max(s, s_det, old_dstore.capacity), states.numel()) >= 2**62:
+    if max(q * v * max(s, s_det, old_dstore.capacity), 0 if new is not None else states.numel()) >= 2**62:
         raise ValueError("fused_sweep extents too large")
     m_bits = bloom_bits.shape[1] if drop_mode == "prob" else 0
     if m_bits >= 2**32:
@@ -345,16 +361,22 @@ def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, 
             det_overflow=torch.zeros(q, dtype=i32, device=dev),
             det_max_iter=torch.full((q,), -1, dtype=i32, device=dev),
         )
-    keep = {  # the tensors behind the pointers, alive until the launch returns
-        "states_t": states.t().contiguous(),  # [Vp, Q]: one sector per gathered vertex
-        "nbr": nbr.contiguous(), "w": w.contiguous(), "kcarry": kcarry.contiguous(),
+    # the tensors behind the pointers, alive until the launch returns
+    if new is not None:
+        keep = {"new": new.contiguous()}
+    else:
+        keep = {
+            "states_t": states.t().contiguous(),  # [Vp, Q]: one sector per gathered vertex
+            "nbr": nbr.contiguous(), "w": w.contiguous(), "kcarry": kcarry.contiguous(),
+        }
+    keep.update({
         "sched": sched.contiguous(), "active": active.contiguous(),
         "cur": cur.contiguous(), "cur_old": cur_old.contiguous(),
         "stale_old": stale_old.contiguous(),
         "d_iters": dstore.iters.contiguous(), "d_vals": dstore.vals.contiguous(),
         "d_count": dstore.count.contiguous(),
         "o_iters": old_dstore.iters.contiguous(), "o_vals": old_dstore.vals.contiguous(),
-    }
+    })
     if drop_mode != "none":
         keep.update(degree=degree.contiguous(),
                     **{f: getattr(params, f).contiguous() for f in dr.DropParams._fields})
@@ -367,7 +389,7 @@ def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, 
             keep[f"out_{f[2:] if f.startswith('d_') else f}"] = getattr(out, f)
     args = _FusedArgs(
         **{name: keep[name].data_ptr() if name in keep else None for name in _PTRS},
-        bloom_bits=m_bits, q=q, v=v, d=nbr.shape[1], s=s, s_old=old_dstore.capacity,
+        bloom_bits=m_bits, q=q, v=v, d=0 if new is not None else nbr.shape[1], s=s, s_old=old_dstore.capacity,
         s_det=s_det, num_hashes=int(bloom_hashes), i=int(i),
         semiring=SEMIRINGS.index(semiring), mode=DROP_MODES.index(drop_mode),
         hop_cap=float(hop_cap),

@@ -314,24 +314,18 @@ def test_maintain_leaves_its_input_state_frozen():
 
 
 def test_unported_configurations_raise():
-    from repro_torch.kernels.fused_sweep import fused_sweep
-
     g = TGraph(4, [(0, 1, 1.0)], capacity=8)
-    with pytest.raises(NotImplementedError, match="VDC slice"):
-        tq.sssp(g, [0], mode="vdc", device=CPU)
     with pytest.raises(NotImplementedError, match="sharded slice"):
         tq.sssp(g, [0], mesh=object(), device=CPU)
-    # dropping and the fused backend are ported: this engine builds
-    eng = tq.sssp(g, [0], backend="fused", drop=tdr.DropConfig(mode="det", p=0.5), device=CPU)
+    with pytest.raises(ValueError, match="realizes JOD"):
+        tq.sssp(g, [0], mode="vdc", backend="ell", device=CPU)
+    # dropping, the fused backend and VDC are ported: this engine builds
+    eng = tq.sssp(g, [0], backend="fused", mode="vdc", drop=tdr.DropConfig(mode="det", p=0.5), device=CPU)
     for name in ("register_slot", "deregister_slot", "export_state", "import_state", "set_drop_params"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             getattr(eng, name)(0)
     with pytest.raises(NotImplementedError, match="governor slice"):
         eng.set_drop_params(0)
-    st = eng.state
-    with pytest.raises(NotImplementedError, match="VDC slice"):
-        fused_sweep(1, st.active[:, None].expand(1, 4), st.active, st.cur, st.cur, st.active[:, None].expand(1, 4),
-                    st.dstore, st.dstore, new=st.cur, **teng._ell_operands(eng.cfg, st.cur, eng.g))
 
 
 # ------------------------------------------------------------------ hygiene
@@ -365,4 +359,5 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(imported) >= 23
     # the dropping / fused slice's modules are among those checked
     assert {"repro_torch.core.bloom", "repro_torch.core.dropping", "repro_torch.core.convert",
-            "repro_torch.kernels.fused_sweep", "repro_torch.kernels.bloom"} <= imported
+            "repro_torch.kernels.fused_sweep", "repro_torch.kernels.bloom",
+            "repro_torch.core.access", "repro_torch.kernels.diff_lookup"} <= imported

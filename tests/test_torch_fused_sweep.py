@@ -152,7 +152,7 @@ def test_fused_sweep_checks_its_operands():
         K2.fused_sweep(*args, **{**kw, "nbr": kw["nbr"].long()})
     with pytest.raises(ValueError):
         K2.fused_sweep(*args, **{**kw, "states": kw["states"][:, :10]})  # no sentinel column
-    with pytest.raises(NotImplementedError, match="VDC slice"):
+    with pytest.raises(ValueError, match="exactly one"):  # new= and the expand's operands
         K2.fused_sweep(*args, **kw, new=args[3])
     meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args[:6])
     with pytest.raises(ValueError, match="several devices"):
@@ -256,7 +256,7 @@ def test_library_path_follows_the_shared_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     sources = sorted(p.name for p in csrc.glob("*.cu"))
-    assert {"ell_spmv.cu", "fused_sweep.cu", "bloom.cu"} <= set(sources)
+    assert {"ell_spmv.cu", "fused_sweep.cu", "bloom.cu", "diff_lookup.cu"} <= set(sources)
     before = {s: _build.library_path(s, csrc) for s in sources}
     assert before == {s: _build.library_path(s) for s in sources}  # same text, same key
     header = csrc / "ell_row.cuh"
