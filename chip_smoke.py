@@ -14,7 +14,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                semirings x three drop modes on random stores with full rows,
                padding and repeated iterations (every output bit-equal;
                ``pr_sum``'s plain version takes the ELL kernel's expand,
-               which is the same device code); ``bloom_query`` bit-equal.
+               which is the same device code); ``bloom_query`` bit-equal;
+               ``diff_lookup`` bit-equal.  ``kernel_small_flash``: K5
+               (``flash_attention``) against its plain version over causal
+               and not, GQA/MQA, ragged Sq/Sk, decode rows, bf16 and f32,
+               contiguous and strided k/v (float32: 2e-5 absolute;
+               bfloat16: 2^-6 of each output row's largest value).
 4. ``main``    the slice at real size: 8 SSSP queries
                (``repro_torch.core.queries.sssp``, ``backend="ell"``,
                ``max_iters=48``, ``batch_capacity=32``, S=16) on a uniform
@@ -35,7 +40,21 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                and DroppedVT, device memory, one profiled chunk.
 6. ``parity_fused``  ``ell`` against ``fused`` at V = 2**16 for the four
                semirings x three drop modes: every state leaf and stat.
-7. ``kernel_real``  each kernel against its plain version at the main
+7. ``main_lm``  llama3.2-1b serving at its published widths in bf16
+               (weights from a seeded generator): ``make_prefill`` on 8 x
+               4096 tokens, 64 greedy ``make_decode`` steps, then
+               ``lm_serve`` at the CLI defaults on ``arch.full()``; K5's
+               launches must equal layers x calls; prefill tokens/s, decode
+               step p50/p99, peak memory, one profiled prefill and decode
+               step, and the plain path (attention through
+               ``chunked_attention``) teacher-forced on the same tokens,
+               picking the kernel path's token at least 0.9 of the time.
+               ``main_lm_long``: prefill 1 x 32768, then 16 decode steps at
+               batch 32 against a 32768-position cache from the generator,
+               held to the same floor.
+               ``main_lm_f32``: full width in float32, TF32 off, 2 x 1024
+               and 8 steps; logits within 1e-4 of the plain path's.
+8. ``kernel_real``  each kernel against its plain version at the main
                path's shapes, timed with CUDA events, beside its bound:
                ``ell_spmv`` on the ``main`` engine's ELL arrays (for
                ``pr_sum`` also one ``torch.sparse.mm`` over the same CSR);
@@ -44,8 +63,13 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                beside it the floor of this design's out-of-place stores);
                ``bloom_query`` on the prob run's filter, packed, also
                held against ``core.bloom.query`` for every (v, i) probe of
-               one query.
-8. ``other_semirings``  K-hop (k=6) and PageRank (10 rounds) at V = 2**16
+               one query; ``diff_lookup`` on the J and Det stores;
+               ``flash_attention`` on the first prefill and decode call of
+               ``main_lm`` and ``main_lm_long``, whose operands are kept by
+               running those two calls again after the timed run (bound: bf16 tensor-core
+               operations or bytes; ``scaled_dot_product_attention`` timed
+               as a yardstick only).
+9. ``other_semirings``  K-hop (k=6) and PageRank (10 rounds) at V = 2**16
                with short batched streams, against SCRATCH.
 
 Then the ``kernels`` line, the card's ``nvidia-smi`` name and power limit,
@@ -54,6 +78,9 @@ and last ``{"ok": true, "device": {...}}``.  There is no CPU path.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -306,11 +333,11 @@ def compare(semiring, got, want) -> float:
     return float((got[finite] - want[finite]).abs().max()) if bool(finite.any()) else 0.0
 
 
-def time_ms(fn, reps: int = 25) -> float:
-    """Median of ``reps`` CUDA-event-timed calls, after warm-up."""
+def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event-timed calls, after ``warmup`` calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -1210,6 +1237,481 @@ def other_semirings(device, num_vertices: int = 1 << 16) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- LM serving (K5)
+BF16_OPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
+# K5 against its plain version.  float32: the reference kernel test's 2e-5
+# (the two sum in other orders).  bfloat16: each output row's largest error
+# over that row's largest |value|, at most two bf16 steps (2^-6): both
+# compute in float32 and round once to bfloat16, so they differ by about
+# one step.  A fixed absolute limit would not follow the outputs, whose
+# size falls as Sk^-1/2 (about 0.01 at 32k keys).
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2.0**-6}
+# main_lm_f32: the kernel path's logits against the plain path's, relative
+# to the largest |logit|: 16 layers of float32 attention summed in other
+# orders (the CPU parity tests hold 2 layers at 1e-5)
+F32_LOGIT_REL_TOL = 1e-4
+# bf16 main_lm and main_lm_long: the plain path must pick the kernel path's
+# token at least this often, teacher-forced (0.96-0.97 measured on the
+# H100; bf16 logits of near-equal tokens may swap, a wrong kernel agrees
+# about 1 / vocab)
+BF16_TOP1_FLOOR = 0.9
+# the LM phases' sizes (the cells' own and their cuts: PERF.md §4)
+LM_MAIN = dict(batch=8, prompt=4096, steps=64)
+LM_LONG = dict(seq=32768, batch=32, steps=16)
+LM_F32 = dict(batch=2, prompt=1024, steps=8)
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def flash_err(got, want) -> dict:
+    """K5's output against its plain version's: the largest absolute
+    difference, and the largest over rows of a row's largest difference
+    over its largest |plain value|."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return {"max_abs_err": float(diff.max()), "max_row_rel_err": float((diff / scale).max())}
+
+
+def flash_within(err: dict, dtype: str) -> bool:
+    """float32 is held at an absolute, bfloat16 at a row-relative limit."""
+    key = "max_row_rel_err" if dtype == "bfloat16" else "max_abs_err"
+    return err[key] <= FLASH_TOL[dtype]
+
+
+def flash_operands(rng, b, hq, hkv, sq, sk, dtype, device, *, strided: bool):
+    """Random q, k, v for K5 at D = 64; ``strided`` takes k and v as a
+    prefix view of a longer cache, as the decode path does."""
+    import torch
+
+    cap = sk + 13 if strided else sk
+    t = lambda shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    return t((b, hq, sq, 64)), t((b, hkv, cap, 64))[:, :, :sk], t((b, hkv, cap, 64))[:, :, :sk]
+
+
+def kernel_small_flash(device) -> dict:
+    """K5 against its plain version: causal and not, GQA, MQA and one head
+    a group, ragged Sq/Sk (Sk = 1, Sq > Sk, Sq = 1 decode rows, groups that
+    fill a decode CTA partly), bf16 and f32, contiguous and strided k/v."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as K5
+
+    rng = np.random.default_rng(SEED + 5)
+    shapes = [(1, 2, 2, 128, 128), (2, 4, 2, 256, 256), (1, 8, 1, 128, 256), (1, 4, 2, 64, 128),
+              (1, 4, 1, 96, 40), (2, 6, 3, 72, 200), (1, 32, 8, 1000, 1000), (2, 4, 2, 130, 1),
+              (2, 32, 8, 1, 4161), (3, 8, 1, 1, 5), (1, 5, 5, 1, 40), (1, 12, 4, 1, 33)]
+    err = {n: {"max_abs_err": 0.0, "max_row_rel_err": 0.0} for n in ("float32", "bfloat16")}
+    strided_err, cases = 0.0, 0
+    for (b, hq, hkv, sq, sk), causal, dtype, strided in itertools.product(
+            shapes, (True, False), (torch.float32, torch.bfloat16), (False, True)):
+        q, k, v = flash_operands(rng, b, hq, hkv, sq, sk, dtype, device, strided=strided)
+        got = K5.flash_attention(q, k, v, causal=causal)
+        e = flash_err(got, K5.flash_attention_plain(q, k, v, causal=causal))
+        name = dtype_name(dtype)
+        if not flash_within(e, name):
+            raise AssertionError(f"flash_attention {(b, hq, hkv, sq, sk)} causal={causal} {name} "
+                                 f"strided={strided}: {e} from its plain version")
+        err[name] = {key: max(err[name][key], x) for key, x in e.items()}
+        if strided:
+            strided_err = max(strided_err, e["max_abs_err"])
+        cases += 1
+    torch.cuda.synchronize()
+    return {"cases": cases, "max_abs_err": max(x["max_abs_err"] for x in err.values()),
+            "err_by_dtype": err, "strided_max_abs_err": strided_err,
+            "tolerance": {"float32_abs": FLASH_TOL["float32"], "bfloat16_row_rel": FLASH_TOL["bfloat16"]}}
+
+
+def flash_bound(b, hq, hkv, sq, sk, d, causal: bool, itemsize: int) -> dict:
+    """Least time for one K5 call: 4·d operations per visible (row, key)
+    pair (QK^T and PV; causal counts the pairs under the diagonal) at the
+    bf16 tensor-core rate, against q, k, v read once and the output written
+    once at 3.35 TB/s; the larger bounds it."""
+    if causal:
+        m = min(sq, sk)
+        pairs = m * (m + 1) // 2 + max(0, sq - sk) * sk
+    else:
+        pairs = sq * sk
+    flops = 4 * b * hq * pairs * d
+    nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk)
+    t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def strided_copy(x):
+    """A copy of ``x`` with its strides (a cache prefix stays a view)."""
+    import torch
+
+    y = torch.empty_strided(tuple(x.shape), x.stride(), dtype=x.dtype, device=x.device)
+    return y.copy_(x)
+
+
+class FlashCapture:
+    """Wraps ``flash_attention`` to keep a copy of the operands of the first
+    call of each form (prefill: Sq > 1; decode: Sq = 1, k/v a cache view,
+    strides kept) for timing the kernel at the LM path's shapes; it calls
+    the kernel unchanged.  It is used only in :func:`capture_forms`, after
+    the timed run."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, {}
+
+    def __call__(self, q, k, v, *, causal=True):
+        form = "decode" if q.shape[2] == 1 else "prefill"
+        if form not in self.calls:
+            self.calls[form] = (q.clone(), strided_copy(k), strided_copy(v), causal)
+        return self.fn(q, k, v, causal=causal)
+
+
+@contextlib.contextmanager
+def patched_attention(fn):
+    """Route the transformer's attention (``kernels.flash_attn.flash_attention``,
+    the one name it calls on the card) to ``fn`` for the duration."""
+    from repro_torch.kernels import flash_attn as K5
+
+    kernel = K5.flash_attention
+    K5.flash_attention = fn
+    try:
+        yield
+    finally:
+        K5.flash_attention = kernel
+
+
+def capture_forms(cfg, params, tokens, cache, first, pos: int, capture: FlashCapture) -> None:
+    """Run the path's first prefill (on ``tokens``) and first decode step
+    (position ``pos``, fed ``first``) again under ``capture``, to keep the
+    operands K5 got there.  It runs after the main path's launches, times
+    and peak memory are read, so the copies are in none of them; the decode
+    step rewrites cache position ``pos`` with the values it holds."""
+    import torch
+
+    from repro_torch.configs import lm_harness as H
+
+    with patched_attention(capture):
+        H.make_prefill(cfg)(params, tokens)
+        H.make_decode(cfg)(params, cache, first, torch.full((first.shape[0],), pos, dtype=torch.long,
+                                                             device=first.device))
+    torch.cuda.synchronize()
+
+
+def plain_attention(q, k, v, *, causal=True):
+    """The port's plain path for one attention call of the transformer:
+    ``chunked_attention`` (the reference's function, at its default blocks)
+    on the same operands."""
+    from repro_torch.models import common as cm
+
+    return cm.chunked_attention(q, k, v, causal=causal)
+
+
+def flash_real(call) -> dict:
+    """K5 on one captured call of the LM path against its plain version,
+    timed, beside its bound and one ``scaled_dot_product_attention`` call
+    (a yardstick only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as K5
+
+    q, k, v, causal = call
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    run = lambda: K5.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: K5.flash_attention_plain(q, k, v, causal=causal)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)  # noqa: E731
+    got = run()
+    err = flash_err(got, plain())
+    if not flash_within(err, dtype_name(q.dtype)):
+        raise AssertionError(f"flash_attention {list(q.shape)} x {list(k.shape)}: {err} from its plain version")
+    lib_err = max_abs_diff(lib().float(), got.float())
+    del got
+    slow = sq * sk > 1 << 26  # the plain version's direct softmax takes seconds there
+    return {"q": list(q.shape), "k": list(k.shape), "k_strides": list(k.stride()), "causal": causal,
+            "dtype": dtype_name(q.dtype), **err, "ms": time_ms(run, reps=5 if slow else 25),
+            "plain_ms": time_ms(plain, reps=1 if slow else 3, warmup=1), **flash_bound(
+                b, hq, hkv, sq, sk, d, causal, q.element_size()),
+            "library_ms": time_ms(lib), "library": "torch.nn.functional.scaled_dot_product_attention",
+            "library_max_abs_err": lib_err}
+
+
+def lm_prefill(cfg, params, tokens):
+    """``make_prefill`` on ``tokens``: (last-position logits, cache, seconds)."""
+    import torch
+
+    from repro_torch.configs import lm_harness as H
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = H.make_prefill(cfg)(params, tokens)
+    torch.cuda.synchronize()
+    return last, cache, time.perf_counter() - t0
+
+
+def lm_decode(cfg, params, cache, first, start: int, steps: int, feed=None):
+    """``steps`` ``make_decode`` steps from position ``start``, the first
+    fed ``first``, the rest their predecessor's greedy token, or ``feed[i]``
+    (teacher forcing).  Returns (logits per step, step ms)."""
+    import torch
+
+    from repro_torch.configs import lm_harness as H
+
+    step = H.make_decode(cfg)
+    b = first.shape[0]
+    tok, logits, ms = first, [], []
+    for i in range(steps):
+        if feed is not None:
+            tok = feed[i]
+        pos = torch.full((b,), start + i, dtype=torch.long, device=first.device)
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, tok, pos)
+        tok = torch.argmax(lg, dim=-1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg)
+    return logits, ms
+
+
+def lm_profile(cfg, params, tokens, cache, tok, pos: int, tag: str) -> dict:
+    """One prefill and one decode step under ``torch.profiler``: device-busy
+    time, idle share of the wall clock and the top device ops of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import lm_harness as H
+
+    out = {}
+    pos_t = torch.full((tok.shape[0],), pos, dtype=torch.long, device=tok.device)
+    for name, fn in (("prefill", lambda: H.make_prefill(cfg)(params, tokens)),
+                     ("decode_step", lambda: H.make_decode(cfg)(params, cache, tok, pos_t))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del res
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        traced = device_busy(prof, OUT_DIR / f"chip_smoke_{tag}_{name}_trace.json")
+        traced["wall_ms"] = wall * 1e3
+        traced["device_idle_share"] = 1.0 - traced["device_busy_ms"] / traced["wall_ms"]
+        traced["flash_attention_ms"] = sum(ms for k, ms in traced["top_device_ms"].items() if "flash_attn" in k)
+        out[name] = traced
+    return out
+
+
+def lm_compare(cfg, params, tokens, cache, gen, logits_k, last_k, start: int) -> dict:
+    """The kernel path's logits against the plain path's (attention through
+    ``chunked_attention``) on the same inputs: the prefill's last logits,
+    then the decode steps teacher-forced with the kernel run's tokens
+    (``cache`` is reused: every position a plain step reads, the plain run
+    has written).  K5 must launch no time."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as K5
+
+    n0 = K5.LAUNCHES
+    with patched_attention(plain_attention):
+        if tokens is not None:
+            last_p, pcache, _ = lm_prefill(cfg, params, tokens)
+            for c, p in zip(cache, pcache):
+                c[:, :, :, : p.shape[3]] = p
+            del pcache
+        logits_p, _ = lm_decode(cfg, params, cache, gen[0], start, len(logits_k), feed=gen[:-1])
+    if K5.LAUNCHES != n0:
+        raise AssertionError("the plain path launched flash_attention")
+    pairs = ([(last_k, last_p)] if tokens is not None else []) + list(zip(logits_k, logits_p))
+    preds = ([(gen[0], last_p)] if tokens is not None else []) + list(zip(gen[1:], logits_p))
+    scale = max(float(k.float().abs().max()) for k, _ in pairs)
+    agree = [float((torch.argmax(p, dim=-1) == g).float().mean()) for g, p in preds]
+    out = {"max_abs_logit": scale,
+           "decode_logits_max_abs_diff": max(max_abs_diff(k.float(), p.float()) for k, p in zip(logits_k, logits_p)),
+           "teacher_forced_top1_agreement": float(np.mean(agree)),
+           "teacher_forced_predictions": int(sum(g.numel() for g, _ in preds))}
+    if tokens is not None:
+        out["prefill_last_logits_max_abs_diff"] = max_abs_diff(last_k.float(), last_p.float())
+    out["logits_max_abs_diff"] = max(max_abs_diff(k.float(), p.float()) for k, p in pairs)
+    out["logits_rel_diff"] = out["logits_max_abs_diff"] / scale
+    return out
+
+
+def lm_prefill_decode_phase(cfg, params, *, batch: int, prompt: int, steps: int, tag: str,
+                            device, capture: FlashCapture | None = None) -> dict:
+    """``make_prefill`` on batch × prompt random tokens, then ``steps``
+    greedy ``make_decode`` steps against a cache of prompt + steps
+    positions (the prefill's cache copied in); K5's count zeroed just before
+    and read just after, and it must equal layers × calls.  Then, with
+    ``capture``, K5's operands of the first prefill and decode step
+    (:func:`capture_forms`), one profiled prefill and decode step, and the
+    plain path on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import transformer as tf
+
+    rng = np.random.default_rng(SEED + 6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    K5.reset_launches()  # ---- the main path starts here
+    last, pcache, prefill_s = lm_prefill(cfg, params, tokens)
+    cache = tf.init_cache(cfg, batch, prompt + steps, device=device)
+    for c, p in zip(cache, pcache):
+        c[:, :, :, :prompt] = p
+    del pcache
+    first = torch.argmax(last, dim=-1)
+    logits, step_ms = lm_decode(cfg, params, cache, first, prompt, steps)
+    launches = K5.LAUNCHES  # ---- and ends here
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.num_layers * (1 + steps):
+        raise AssertionError(f"{tag}: {launches} flash_attention launches for {cfg.num_layers} layers x "
+                             f"{1 + steps} calls")
+    if capture is not None:
+        capture_forms(cfg, params, tokens, cache, first, prompt, capture)
+    gen = [first] + [torch.argmax(lg, dim=-1) for lg in logits]
+    for lg in [last, *logits]:
+        if tuple(lg.shape) != (batch, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{tag}: logits of shape {tuple(lg.shape)} or not finite")
+    traced = lm_profile(cfg, params, tokens, cache, gen[-2], prompt + steps - 1, tag)
+    out = {"batch": batch, "prompt_len": prompt, "decode_steps": steps, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": batch * prompt / prefill_s,
+           "decode_tokens_per_s": batch * steps / (sum(step_ms) / 1e3),
+           "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
+           "decode_step_ms_p99": float(np.percentile(step_ms, 99)), "decode_step_ms": step_ms,
+           "peak_device_memory": peak, "launches": launches,
+           "launches_expected": f"{cfg.num_layers} layers x {1 + steps} calls",
+           "traced": traced}
+    out["vs_plain"] = lm_compare(cfg, params, tokens, cache, gen, logits, last, prompt)
+    return out
+
+
+def main_lm(device, capture: FlashCapture) -> tuple[dict, dict]:
+    """llama3.2-1b at its published widths in bf16, weights from a seeded
+    generator: ``make_prefill`` on 8 x 4096 tokens and 64 decode steps,
+    then ``lm_serve`` at the CLI defaults (batch 4, prompt 16, gen 8) on
+    ``arch.full()``.  Returns the phase line and the weights."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.launch import model_serve as MS
+    from repro_torch.models import transformer as tf
+
+    arch = get_arch("llama3.2-1b")
+    cfg = arch.full()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # warm-up (cuBLAS handles, the allocator): one short prefill and step
+    warm = torch.zeros((1, 64), dtype=torch.long, device=device)
+    lm_prefill(cfg, params, warm)
+    out = {"arch": arch.name, "dtype": dtype_name(cfg.dtype), "num_params": cfg.num_params(),
+           "init_s": init_s,
+           "reduced": {"prefill_32k.global_batch": "32 -> 8", "prefill_32k.seq_len": "32768 -> 4096"}}
+    out.update(lm_prefill_decode_phase(cfg, params, **LM_MAIN, tag="lm", device=device, capture=capture))
+    agree = out["vs_plain"]["teacher_forced_top1_agreement"]
+    if not agree >= BF16_TOP1_FLOOR:
+        raise AssertionError(f"main_lm: the plain path agrees with the kernel path's tokens {agree} of the time")
+    K5.reset_launches()  # ---- lm_serve's path starts here
+    served = MS.lm_serve(arch, 4, 16, 8, cfg=cfg, device=device)
+    launches = K5.LAUNCHES  # ---- and ends here
+    if launches != cfg.num_layers * (16 + 8 - 1):
+        raise AssertionError(f"lm_serve: {launches} flash_attention launches, want {cfg.num_layers} x 23")
+    toks = served["tokens"]
+    if tuple(toks.shape) != (4, 8) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"lm_serve returned tokens {toks}")
+    out["lm_serve"] = {"batch": 4, "prompt_len": 16, "gen": 8, "seconds": served["seconds"],
+                       "tokens_per_s": served["tokens_per_s"], "launches": launches,
+                       "tokens_row0": toks[0].tolist()}
+    return out, params
+
+
+def main_lm_long(device, params, capture: FlashCapture) -> dict:
+    """The cells' own sequence length: ``make_prefill`` on 1 x 32768 tokens,
+    then 16 ``make_decode`` steps at batch 32 against a 32768-position cache
+    filled from the generator (positions 32752..32767)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch("llama3.2-1b").full()
+    seq, batch, steps = LM_LONG["seq"], LM_LONG["batch"], LM_LONG["steps"]
+    rng = np.random.default_rng(SEED + 7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq))).to(device)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch,))).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    K5.reset_launches()  # ---- the main path starts here
+    last, pcache, prefill_s = lm_prefill(cfg, params, tokens)
+    del pcache
+    cache = tf.init_cache(cfg, batch, seq, device=device)
+    gen_t = torch.Generator(device=device).manual_seed(SEED + 7)
+    for c in cache:
+        c.normal_(generator=gen_t)
+    logits, step_ms = lm_decode(cfg, params, cache, feed, seq - steps, steps)
+    launches = K5.LAUNCHES  # ---- and ends here
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.num_layers * (1 + steps):
+        raise AssertionError(f"main_lm_long: {launches} flash_attention launches for "
+                             f"{cfg.num_layers} x {1 + steps} calls")
+    capture_forms(cfg, params, tokens, cache, feed, seq - steps, capture)
+    for lg in [last, *logits]:
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError("main_lm_long: logits not finite")
+    gen = [feed] + [torch.argmax(lg, dim=-1) for lg in logits]
+    traced = lm_profile(cfg, params, tokens, cache, gen[-2], seq - 1, "lm_long")
+    # the plain path: the 32k prefill's last logits, then the decode steps
+    # teacher-forced on the same cache
+    n0 = K5.LAUNCHES
+    with patched_attention(plain_attention):
+        last_p, pcache, _ = lm_prefill(cfg, params, tokens)
+        del pcache
+    if K5.LAUNCHES != n0:
+        raise AssertionError("the plain path launched flash_attention")
+    vs_plain = lm_compare(cfg, params, None, cache, gen, logits, None, seq - steps)
+    vs_plain["prefill_last_logits_max_abs_diff"] = max_abs_diff(last.float(), last_p.float())
+    vs_plain["prefill_top1_agreement"] = float((torch.argmax(last_p, -1) == torch.argmax(last, -1)).float().mean())
+    agree = vs_plain["teacher_forced_top1_agreement"]
+    if not agree >= BF16_TOP1_FLOOR:
+        raise AssertionError(f"main_lm_long: the plain path agrees with the kernel path's tokens {agree} of the time")
+    del cache
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "dtype": dtype_name(cfg.dtype),
+            "reduced": {"prefill_32k.global_batch": "32 -> 1", "decode_32k.global_batch": "128 -> 32"},
+            "prefill_batch": 1, "seq_len": seq, "decode_batch": batch, "decode_steps": steps,
+            "prefill_s": prefill_s, "prefill_tokens_per_s": seq / prefill_s,
+            "decode_tokens_per_s": batch * steps / (sum(step_ms) / 1e3),
+            "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
+            "decode_step_ms_p99": float(np.percentile(step_ms, 99)), "decode_step_ms": step_ms,
+            "peak_device_memory": peak, "launches": launches,
+            "launches_expected": f"{cfg.num_layers} layers x {1 + steps} calls",
+            "traced": traced, "vs_plain": vs_plain}
+
+
+def main_lm_f32(device) -> dict:
+    """llama3.2-1b at full width in float32 with TF32 off: batch 2 x 1024
+    and 8 decode steps, the kernel path's logits against the plain path's
+    (``chunked_attention``) at :data:`F32_LOGIT_REL_TOL`."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("llama3.2-1b").full(), dtype=torch.float32)
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED + 1), device=device)
+    out = {"arch": cfg.name, "dtype": "float32", "allow_tf32": False, "rel_tolerance": F32_LOGIT_REL_TOL}
+    out.update(lm_prefill_decode_phase(cfg, params, **LM_F32, tag="lm_f32", device=device))
+    rel = out["vs_plain"]["logits_rel_diff"]
+    if not rel <= F32_LOGIT_REL_TOL:
+        raise AssertionError(f"main_lm_f32: logits differ from the plain path by {rel} of the largest")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------- main
 def main() -> None:
     import torch
@@ -1221,6 +1723,7 @@ def main() -> None:
     from repro_torch.kernels import bloom as K3
     from repro_torch.kernels import diff_lookup as K4
     from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import flash_attn as K5
     from repro_torch.kernels import fused_sweep as K2
 
     smi = subprocess.run(
@@ -1234,7 +1737,7 @@ def main() -> None:
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=len(sources)) as ex:
         list(ex.map(_build.compile_source, sources))
-    for K in (K1, K2, K3, K4):
+    for K in (K1, K2, K3, K4, K5):
         K._lib()
     emit("build", seconds=time.perf_counter() - t0, sources=sources,
          build_s={s: _build.build_info[s]["seconds"] for s in sources},
@@ -1243,6 +1746,7 @@ def main() -> None:
 
     dev = "cuda"
     emit("kernel_small", **kernel_small(dev))
+    emit("kernel_small_flash", **kernel_small_flash(dev))
 
     num_updates, chunk, num_queries = 256, 32, 8
     graph0, stream, qsources, host_setup_s = make_data(PATENTS_V, PATENTS_E, num_updates, chunk, num_queries)
@@ -1271,11 +1775,29 @@ def main() -> None:
 
     emit("parity_fused", **parity_fused(dev))
     emit("parity_vdc", **parity_vdc(dev))
+
+    lm_capture, long_capture = FlashCapture(K5.flash_attention), FlashCapture(K5.flash_attention)
+    lm_out, params = main_lm(dev, lm_capture)
+    emit("main_lm", **lm_out)
+    long_out = main_lm_long(dev, params, long_capture)
+    emit("main_lm_long", **long_out)
+    del params
+    torch.cuda.empty_cache()
+    f32_out = main_lm_f32(dev)
+    emit("main_lm_f32", **f32_out)
+    flash = {"prefill": flash_real(lm_capture.calls["prefill"]),
+             "decode": flash_real(lm_capture.calls["decode"]),
+             "prefill_32k": flash_real(long_capture.calls["prefill"]),
+             "decode_32k": flash_real(long_capture.calls["decode"])}
+    del lm_capture, long_capture
+    torch.cuda.empty_cache()
+
     emit("kernel_real", q=q, v=v, d=d, ell_spmv=real1,
          fused_sweep={**{m: real[m] for m in ("none", "det", "prob")},
                       "vdc_new": vdc_real["fused_sweep_new"]},
          bloom_query=real["bloom_query"],
-         diff_lookup={"vdc_jstore": vdc_real["diff_lookup"], "det_store": real["diff_lookup_det"]})
+         diff_lookup={"vdc_jstore": vdc_real["diff_lookup"], "det_store": real["diff_lookup_det"]},
+         flash_attention=flash)
     emit("other_semirings", **other_semirings(dev))
 
     mp = real1["min_plus"]
@@ -1289,6 +1811,11 @@ def main() -> None:
                 **{f"vdc_{b}": r for b, r in vdc_runs.items()}}
     launches = {k: sum(r["launches"][k] for r in all_runs.values())
                 for k in ("ell_spmv", "fused_sweep", "bloom", "diff_lookup")}
+    # K5 over the LM runs, each counted from 0: prefill + decode, lm_serve,
+    # the 32k cell, float32
+    lm_launches = {"lm_prefill_and_decode": lm_out["launches"], "lm_serve": lm_out["lm_serve"]["launches"],
+                   "lm_long": long_out["launches"], "lm_f32": f32_out["launches"]}
+    k5 = flash["prefill"]
     print(json.dumps({"kernels": [
         {
             "name": "ell_spmv",
@@ -1353,6 +1880,22 @@ def main() -> None:
             "library_ms": None,  # no single call computes it; searchsorted (index only) is a note
             "searchsorted_index_only_ms": k4["searchsorted_index_only_ms"],
             "det_store": real["diff_lookup_det"],
+        },
+        {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn.py:68",
+            "launches": sum(lm_launches.values()),
+            "launches_by_run": lm_launches,
+            "max_abs_err": max(f["max_abs_err"] for f in flash.values()),
+            "ms": k5["ms"],
+            "plain_ms": k5["plain_ms"],
+            "bound_ms": k5["bound_ms"],
+            "bound_by": k5["bound_by"],
+            "library_ms": k5["library_ms"],  # scaled_dot_product_attention, a yardstick only
+            "form": "prefill (8 x 4096, bf16, causal)",
+            "by_form": flash,
         },
     ]}), flush=True)
     print(smi, flush=True)

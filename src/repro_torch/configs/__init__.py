@@ -1,0 +1,30 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution.
+
+Only the architectures whose model is ported resolve; the reference's other
+ids raise a ``KeyError`` that says so.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+_MODULES = {
+    "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+}
+# the reference's other architectures (repro/configs/__init__.py)
+NOT_PORTED = (
+    "qwen2-72b", "minicpm3-4b", "qwen2-moe-a2.7b", "arctic-480b", "pna", "gatedgcn",
+    "dimenet", "equiformer-v2", "mind", "diff-ife",
+)
+
+ARCH_NAMES = list(_MODULES)
+
+
+def get_arch(name: str):
+    key = name.replace("_", "-").lower()
+    if key in NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP Queue 1 item 12); "
+                       f"ported: {ARCH_NAMES}")
+    if key not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}")
+    return importlib.import_module(_MODULES[key]).ARCH

@@ -12,6 +12,10 @@ flags as ``"join_mat"``; the rest by field name).  These functions turn such a d
 port's tensors on a device (the seed held in int64), and the port's state
 back into the same dict, so a run can move between the two packages
 mid-stream and be compared leaf by leaf.
+
+:func:`transformer_params_from_reference` does the same for a transformer's
+parameter tree (or its decode cache): nested dicts and tuples of numpy
+leaves, the reference's nesting kept, each leaf's dtype kept.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 from repro_torch.core import bloom
 from repro_torch.core import diffstore as ds
 from repro_torch.core import dropping as dr
-from repro_torch.core.engine import EngineState, GraphArrays, UpdateBatch
+from repro_torch.core.engine import EngineState, GraphArrays, UpdateBatch, resolve_device
 
 _STATE_TENSORS = ("init", "cur", "repair_counts", "active")
 
@@ -109,3 +113,24 @@ def graph_arrays_to_numpy(g: GraphArrays) -> dict[str, np.ndarray]:
 def update_batch_from_numpy(leaves: dict[str, np.ndarray], device) -> UpdateBatch:
     """The port's :class:`UpdateBatch` from numpy leaves named by field."""
     return UpdateBatch(**{f: _t(leaves[f], device) for f in UpdateBatch._fields})
+
+
+def _leaf_from_numpy(x: np.ndarray, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16: carried as its bits, so the values stay exact
+        return torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return _t(x, device)
+
+
+def transformer_params_from_reference(tree, device=None):
+    """The reference's transformer parameters (or decode cache) pulled to
+    numpy — dicts and tuples of arrays, layers stacked ``[L, ...]`` — as
+    the port's tensors on ``device`` (default: the CUDA device), with the
+    same nesting and dtypes."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: transformer_params_from_reference(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(transformer_params_from_reference(v, device) for v in tree)
+    return _leaf_from_numpy(tree, device)

@@ -1,0 +1,139 @@
+"""Shared model primitives: norms, RoPE, activations, parameter creation and
+chunked (flash-style) attention in plain PyTorch.
+
+The port of ``repro/models/common.py`` for one device: parameters are plain
+dicts of tensors, created through :class:`ParamFactory` on a
+``torch.Generator``.  The reference's logical-axis specs, ``constrain`` and
+``activation_mesh`` only place arrays on a mesh, and the ``dlse_*``
+attentions run only under one, so they have no counterpart here (nor, until
+training is ported, ``cross_entropy_loss``).
+
+Each function promotes types as the reference does: a bfloat16 tensor times
+a float32 one computes in float32, and the reference's casts back to the
+input dtype stand where it puts them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.engine import resolve_device
+
+Tensor = torch.Tensor
+
+
+class ParamFactory:
+    """Creates parameters from a ``torch.Generator``: ``N(0, 1) * scale``
+    drawn in float32 (``scale`` defaults to ``fan_in ** -0.5``, fan-in being
+    the second-to-last axis), then cast to ``dtype``; or zeros.  ``device``
+    defaults to the CUDA device; on ``meta`` the factory only shapes the
+    parameters (no generator needed)."""
+
+    def __init__(self, generator: torch.Generator | None, dtype=torch.float32, device=None) -> None:
+        self.generator = generator
+        self.dtype = dtype
+        self.device = resolve_device(device)
+
+    def param(self, tree: dict, name: str, shape, *, scale=None, zeros=False) -> Tensor:
+        if zeros or self.device.type == "meta":
+            tree[name] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            s = scale if scale is not None else fan_in**-0.5
+            x = torch.randn(shape, generator=self.generator, dtype=torch.float32, device=self.device)
+            tree[name] = (x * s).to(self.dtype)
+        return tree[name]
+
+
+def rms_norm(x: Tensor, gamma: Tensor, eps: float = 1e-6) -> Tensor:
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    # x * rsqrt(var) is float32 (the reference's promotion), cast back to
+    # x's dtype before the product with gamma
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def swiglu(x: Tensor, wg: Tensor, wi: Tensor, wo: Tensor) -> Tensor:
+    g = x @ wg
+    # jax.nn.silu is x * sigmoid(x), each rounded to x's dtype
+    return (g * torch.sigmoid(g) * (x @ wi)) @ wo
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope_freqs(dim: int, theta: float = 10000.0, device=None) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
+    """x [..., S, D] with D even; positions [..., S].  Computed in float32
+    and cast back to x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)  # [D/2]
+    angles = positions[..., None].float() * freqs  # [..., S, D/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., : d // 2], x[..., d // 2 :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------- chunked attention
+def chunked_attention(
+    q: Tensor,  # [B, Hq, Sq, D]
+    k: Tensor,  # [B, Hkv, Sk, D]
+    v: Tensor,  # [B, Hkv, Sk, Dv]
+    *,
+    causal: bool = True,
+    q_offset: Tensor | int = 0,  # absolute position of q[..., 0, :]
+    block_q: int = 512,
+    block_k: int = 1024,
+    kv_valid_len: Tensor | int | None = None,  # mask KV positions >= this (decode cache)
+) -> Tensor:
+    """Flash-style online-softmax attention over blocks of queries and keys,
+    the reference's block loop step for step (its ``lax.map`` and
+    ``lax.scan`` become Python loops).  GQA via head grouping.
+
+    ``q`` is scaled by ``D**-0.5`` in its own dtype before the float32
+    cast, where K5 scales in float32: for D = 64 and 16 the scale is a
+    power of two, so the two agree bit for bit.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk, dv = v.shape[1], v.shape[2], v.shape[3]
+    group = hq // k.shape[1]
+    bq, bk = min(block_q, sq), min(block_k, sk)
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    qpad, kpad = nq * bq - sq, nk * bk - sk
+    if qpad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, qpad))
+    if kpad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, kpad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, kpad))
+    scale = d**-0.5
+    valid = kv_valid_len if kv_valid_len is not None else sk
+    valid = torch.as_tensor(valid, device=q.device)
+    outs = []
+    for iq in range(nq):
+        qb32 = (q[:, :, iq * bq : (iq + 1) * bq] * scale).float()
+        qh = qb32.reshape(b, hkv, group, bq, d)  # query heads grouped onto their KV head
+        m = torch.full((b, hkv, group, bq), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, hkv, group, bq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, hkv, group, bq, dv), dtype=torch.float32, device=q.device)
+        for ik in range(nk):
+            kb = k[:, :, ik * bk : (ik + 1) * bk].float()  # [B, Hkv, Bk, D]
+            vb = v[:, :, ik * bk : (ik + 1) * bk].float()
+            s = torch.einsum("bngqd,bnkd->bngqk", qh, kb)  # [B, Hkv, G, Bq, Bk]
+            cols = ik * bk + torch.arange(bk, device=q.device)
+            if causal:
+                rows = q_offset + iq * bq + torch.arange(bq, device=q.device)
+                mask = cols[None, :] <= rows[:, None]
+            else:
+                mask = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
+            mask = mask & (cols < valid)[None, :]
+            s = torch.where(mask[None, None, None], s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bngqk,bnkd->bngqd", p, vb)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.reshape(b, hq, bq, dv).to(q.dtype))
+    return torch.cat(outs, dim=2)[:, :, :sq]

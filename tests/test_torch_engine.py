@@ -338,6 +338,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         teng.resolve_device(None)
     assert teng.resolve_device("cpu") == torch.device("cpu")
+    # the LM serving slice's entry points
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import model_serve
+    from repro_torch.models import common as mcommon
+    from repro_torch.models import transformer as ttf
+
+    arch = get_arch("llama3.2-1b")
+    cfg = arch.smoke()
+    for call in (lambda: ttf.init_params(cfg, torch.Generator().manual_seed(0)),
+                 lambda: ttf.init_cache(cfg, 2, 4),
+                 lambda: mcommon.ParamFactory(torch.Generator()),
+                 lambda: convert.transformer_params_from_reference({"embed": np.zeros((2, 2), np.float32)}),
+                 lambda: model_serve.lm_serve(arch, 1, 2, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert ttf.init_cache(cfg, 2, 4, device="cpu")[0].device == torch.device("cpu")
+    assert cfg.num_params() > 0  # shapes only, on the meta device
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -357,7 +374,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
     assert len(imported) >= 23
-    # the dropping / fused slice's modules are among those checked
+    # the dropping / fused, VDC and LM serving slices' modules are among those checked
     assert {"repro_torch.core.bloom", "repro_torch.core.dropping", "repro_torch.core.convert",
             "repro_torch.kernels.fused_sweep", "repro_torch.kernels.bloom",
-            "repro_torch.core.access", "repro_torch.kernels.diff_lookup"} <= imported
+            "repro_torch.core.access", "repro_torch.kernels.diff_lookup",
+            "repro_torch.models.transformer", "repro_torch.kernels.flash_attn",
+            "repro_torch.launch.model_serve"} <= imported
