@@ -8,6 +8,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 1. ``env``     torch/CUDA versions, the card, its power limit.
 2. ``build``   every CUDA source under ``src/repro_torch/kernels/csrc/``
                compiled by ``nvcc`` (one process each, all started together).
+               ``flash_sass``: tensor-core instructions (HMMA / HGMMA) per
+               kernel of the built ``flash_attn`` library (``cuobjdump
+               -sass``); the bf16 prefill kernels must have them.
 3. ``kernel_small``  each kernel against its plain PyTorch version at ragged
                small shapes: ``ell_spmv`` for the four semirings (min family
                bit-exact, ``pr_sum`` at rtol 1e-6); ``fused_sweep`` for four
@@ -16,10 +19,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                ``pr_sum``'s plain version takes the ELL kernel's expand,
                which is the same device code); ``bloom_query`` bit-equal;
                ``diff_lookup`` bit-equal.  ``kernel_small_flash``: K5
-               (``flash_attention``) against its plain version over causal
-               and not, GQA/MQA, ragged Sq/Sk, decode rows, bf16 and f32,
-               contiguous and strided k/v (float32: 2e-5 absolute;
-               bfloat16: 2^-6 of each output row's largest value).
+               (``flash_attention``) against its plain version at head
+               dims 16, 64 and 128 over causal and not, GQA/MQA, ragged
+               Sq/Sk, decode rows, bf16 and f32, contiguous and strided k/v
+               (288 cases; float32: 2e-5 absolute; bfloat16: 2^-6 of each
+               output row's largest value).
 4. ``main``    the slice at real size: 8 SSSP queries
                (``repro_torch.core.queries.sssp``, ``backend="ell"``,
                ``max_iters=48``, ``batch_capacity=32``, S=16) on a uniform
@@ -66,9 +70,17 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                one query; ``diff_lookup`` on the J and Det stores;
                ``flash_attention`` on the first prefill and decode call of
                ``main_lm`` and ``main_lm_long``, whose operands are kept by
-               running those two calls again after the timed run (bound: bf16 tensor-core
-               operations or bytes; ``scaled_dot_product_attention`` timed
-               as a yardstick only).
+               running those two calls again after the timed run, and on
+               random bf16 operands at head dims 128 (qwen2-moe's 16/16
+               heads at 8 x 4096 and a 32 x 32,753-key cache view;
+               qwen2-72b's 64/8 at 1 x 4096) and 16 (the smoke config's
+               4/2 at 8 x 4096, prefill and decode); the float32 forms on
+               ``main_lm_f32``'s first calls and at D = 128 and 16 (bound
+               at the float32 rate); each called twice and
+               bit-equal (bound: bf16 tensor-core operations or bytes;
+               ``scaled_dot_product_attention`` timed as a yardstick only;
+               beside the CUDA-event time each call's device time with
+               the calls queued back to back, which leaves out host gaps).
 9. ``other_semirings``  K-hop (k=6) and PageRank (10 rounds) at V = 2**16
                with short batched streams, against SCRATCH.
 
@@ -152,9 +164,10 @@ def pick_sources(graph, count: int, rng) -> list[int]:
     return [int(x) for x in rng.choice(has_out, size=count, replace=False)]
 
 
-def device_busy(prof, path: Path) -> dict:
+def device_busy(prof, path: Path, k5: bool = False) -> dict:
     """Device-busy time of a profiled window from its Chrome trace (kernels,
-    copies and sets on the card), plus the top kernels by time."""
+    copies and sets on the card), plus the top kernels by time and, with
+    ``k5``, the time of K5's kernels."""
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     by_name: dict[str, float] = {}
@@ -165,7 +178,10 @@ def device_busy(prof, path: Path) -> dict:
             key = ev["name"][:80]
             by_name[key] = by_name.get(key, 0.0) + float(ev["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"device_busy_ms": busy / 1e3, "top_device_ms": {k: v / 1e3 for k, v in top}}
+    out = {"device_busy_ms": busy / 1e3, "top_device_ms": {k: v / 1e3 for k, v in top}}
+    if k5:  # every K5 kernel's time, not only the top names'
+        out["flash_attention_ms"] = sum(t for k, t in by_name.items() if "flash_attn" in k) / 1e3
+    return out
 
 
 # --------------------------------------------------------------------------- kernel checks
@@ -1280,54 +1296,103 @@ def flash_within(err: dict, dtype: str) -> bool:
     return err[key] <= FLASH_TOL[dtype]
 
 
-def flash_operands(rng, b, hq, hkv, sq, sk, dtype, device, *, strided: bool):
-    """Random q, k, v for K5 at D = 64; ``strided`` takes k and v as a
-    prefix view of a longer cache, as the decode path does."""
+def flash_operands(gen, b, hq, hkv, sq, sk, d, dtype, device, *, strided: bool, cap: int | None = None):
+    """Random q, k, v for K5 at head dim ``d`` from the CUDA generator
+    ``gen``; ``strided`` takes k and v as the first ``sk`` positions of a
+    cache of ``cap`` (default sk + 13), as the decode path does."""
     import torch
 
-    cap = sk + 13 if strided else sk
-    t = lambda shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)  # noqa: E731
-    return t((b, hq, sq, 64)), t((b, hkv, cap, 64))[:, :, :sk], t((b, hkv, cap, 64))[:, :, :sk]
+    cap = (cap or sk + 13) if strided else sk
+    t = lambda shape: torch.randn(shape, generator=gen, device=device).to(dtype)  # noqa: E731
+    return t((b, hq, sq, d)), t((b, hkv, cap, d))[:, :, :sk], t((b, hkv, cap, d))[:, :, :sk]
+
+
+FLASH_DIMS = (16, 64, 128)  # the head dims K5 is built for
 
 
 def kernel_small_flash(device) -> dict:
-    """K5 against its plain version: causal and not, GQA, MQA and one head
-    a group, ragged Sq/Sk (Sk = 1, Sq > Sk, Sq = 1 decode rows, groups that
-    fill a decode CTA partly), bf16 and f32, contiguous and strided k/v."""
+    """K5 against its plain version at each head dim it is built for:
+    causal and not, GQA, MQA and one head a group, ragged Sq/Sk (Sk = 1,
+    Sq > Sk, Sq = 1 decode rows, groups that fill a decode CTA partly or
+    span two), bf16 and f32, contiguous and strided k/v."""
     import torch
 
     from repro_torch.kernels import flash_attn as K5
 
-    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
     shapes = [(1, 2, 2, 128, 128), (2, 4, 2, 256, 256), (1, 8, 1, 128, 256), (1, 4, 2, 64, 128),
               (1, 4, 1, 96, 40), (2, 6, 3, 72, 200), (1, 32, 8, 1000, 1000), (2, 4, 2, 130, 1),
               (2, 32, 8, 1, 4161), (3, 8, 1, 1, 5), (1, 5, 5, 1, 40), (1, 12, 4, 1, 33)]
     err = {n: {"max_abs_err": 0.0, "max_row_rel_err": 0.0} for n in ("float32", "bfloat16")}
+    by_dim = {d: 0.0 for d in FLASH_DIMS}
     strided_err, cases = 0.0, 0
-    for (b, hq, hkv, sq, sk), causal, dtype, strided in itertools.product(
-            shapes, (True, False), (torch.float32, torch.bfloat16), (False, True)):
-        q, k, v = flash_operands(rng, b, hq, hkv, sq, sk, dtype, device, strided=strided)
+    for d, (b, hq, hkv, sq, sk), causal, dtype, strided in itertools.product(
+            FLASH_DIMS, shapes, (True, False), (torch.float32, torch.bfloat16), (False, True)):
+        q, k, v = flash_operands(gen, b, hq, hkv, sq, sk, d, dtype, device, strided=strided)
         got = K5.flash_attention(q, k, v, causal=causal)
         e = flash_err(got, K5.flash_attention_plain(q, k, v, causal=causal))
         name = dtype_name(dtype)
         if not flash_within(e, name):
-            raise AssertionError(f"flash_attention {(b, hq, hkv, sq, sk)} causal={causal} {name} "
+            raise AssertionError(f"flash_attention {(b, hq, hkv, sq, sk, d)} causal={causal} {name} "
                                  f"strided={strided}: {e} from its plain version")
         err[name] = {key: max(err[name][key], x) for key, x in e.items()}
+        by_dim[d] = max(by_dim[d], e["max_abs_err"])
         if strided:
             strided_err = max(strided_err, e["max_abs_err"])
         cases += 1
     torch.cuda.synchronize()
-    return {"cases": cases, "max_abs_err": max(x["max_abs_err"] for x in err.values()),
-            "err_by_dtype": err, "strided_max_abs_err": strided_err,
+    return {"cases": cases, "head_dims": list(FLASH_DIMS), "max_abs_err": max(x["max_abs_err"] for x in err.values()),
+            "err_by_dtype": err, "max_abs_err_by_head_dim": by_dim, "strided_max_abs_err": strided_err,
             "tolerance": {"float32_abs": FLASH_TOL["float32"], "bfloat16_row_rel": FLASH_TOL["bfloat16"]}}
+
+
+def sass_kernel_name(symbol: str) -> str:
+    """``flash_attn_prefill_bf16<64>``, ``flash_attn_decode_partial<bf16,128>``
+    ... for a mangled kernel symbol of ``flash_attn.cu`` (the symbol itself
+    otherwise)."""
+    import re
+
+    m = re.search(r"\d+(flash_attn_\w+?)I(13__nv_bfloat16|f)?Li(\d+)E", symbol)
+    if m is None:
+        return symbol
+    dtype = {"13__nv_bfloat16": "bf16,", "f": "f32,"}.get(m.group(2) or "", "")
+    return f"{m.group(1)}<{dtype}{m.group(3)}>"
+
+
+def flash_sass() -> dict:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) per kernel of the built
+    ``flash_attn`` library, read from ``cuobjdump -sass`` of the toolkit;
+    the bf16 prefill kernels must have them."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    lib = _build.library_path("flash_attn.cu")
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    counts: dict[str, dict] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = sass_kernel_name(m.group(1))
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            if op:
+                counts[fn][op.group(1)] += 1
+    prefill = {k: c for k, c in counts.items() if k.startswith("flash_attn_prefill_bf16")}
+    if len(prefill) != len(FLASH_DIMS) or not all(c["HMMA"] + c["HGMMA"] > 0 for c in prefill.values()):
+        raise AssertionError(f"the bf16 prefill kernels lack tensor-core instructions: {prefill}")
+    return {"library": lib.name, "tensor_core_instructions": counts}
 
 
 def flash_bound(b, hq, hkv, sq, sk, d, causal: bool, itemsize: int) -> dict:
     """Least time for one K5 call: 4·d operations per visible (row, key)
     pair (QK^T and PV; causal counts the pairs under the diagonal) at the
-    bf16 tensor-core rate, against q, k, v read once and the output written
-    once at 3.35 TB/s; the larger bounds it."""
+    rate of the inputs' type (bf16 tensor cores; float32 outside them, as
+    TF32 would not hold the float32 check), against q, k, v read once and
+    the output written once at 3.35 TB/s; the larger bounds it."""
     if causal:
         m = min(sq, sk)
         pairs = m * (m + 1) // 2 + max(0, sq - sk) * sk
@@ -1335,7 +1400,8 @@ def flash_bound(b, hq, hkv, sq, sk, d, causal: bool, itemsize: int) -> dict:
         pairs = sq * sk
     flops = 4 * b * hq * pairs * d
     nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk)
-    t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
 
@@ -1405,6 +1471,26 @@ def plain_attention(q, k, v, *, causal=True):
     return cm.chunked_attention(q, k, v, causal=causal)
 
 
+def device_ms_per_call(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls enqueued behind a
+    device sleep (about 50 ms), so the card runs them back to back, timed
+    with CUDA events, over ``calls``.  Unlike :func:`time_ms` it leaves out
+    the host's time between launches, which a call of a few tens of
+    microseconds can spend more of than the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # clock cycles; the host enqueues meanwhile
+    e0.record()
+    for _ in range(calls):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / calls
+
+
 def flash_real(call) -> dict:
     """K5 on one captured call of the LM path against its plain version,
     timed, beside its bound and one ``scaled_dot_product_attention`` call
@@ -1424,15 +1510,51 @@ def flash_real(call) -> dict:
     err = flash_err(got, plain())
     if not flash_within(err, dtype_name(q.dtype)):
         raise AssertionError(f"flash_attention {list(q.shape)} x {list(k.shape)}: {err} from its plain version")
+    if not bool(torch.equal(run(), got)):  # no atomics: the split-K merge runs in one order
+        raise AssertionError(f"flash_attention {list(q.shape)} x {list(k.shape)}: a second call differs")
     lib_err = max_abs_diff(lib().float(), got.float())
     del got
     slow = sq * sk > 1 << 26  # the plain version's direct softmax takes seconds there
     return {"q": list(q.shape), "k": list(k.shape), "k_strides": list(k.stride()), "causal": causal,
-            "dtype": dtype_name(q.dtype), **err, "ms": time_ms(run, reps=5 if slow else 25),
+            "dtype": dtype_name(q.dtype), "head_dim": d, "repeat_bit_equal": True, **err,
+            "ms": time_ms(run, reps=5 if slow else 25),
+            "device_ms": device_ms_per_call(run),
             "plain_ms": time_ms(plain, reps=1 if slow else 3, warmup=1), **flash_bound(
                 b, hq, hkv, sq, sk, d, causal, q.element_size()),
-            "library_ms": time_ms(lib), "library": "torch.nn.functional.scaled_dot_product_attention",
-            "library_max_abs_err": lib_err}
+            "library_ms": time_ms(lib), "library_device_ms": device_ms_per_call(lib),
+            "library": "torch.nn.functional.scaled_dot_product_attention", "library_max_abs_err": lib_err}
+
+
+# K5 rows beyond the LM cells' own calls (llama3.2-1b's head dim of 64), on
+# random operands from a seeded CUDA generator: (b, hq, hkv, sq, sk, d,
+# causal, cache length, dtype)
+FLASH_ROWS = {
+    "prefill_d128": (8, 16, 16, 4096, 4096, 128, True, None, "bfloat16"),  # qwen2-moe-a2.7b's heads
+    "decode_32k_d128": (32, 16, 16, 1, 32753, 128, False, 32768, "bfloat16"),  # a 32k cache's prefix
+    "prefill_gqa_d128": (1, 64, 8, 4096, 4096, 128, True, None, "bfloat16"),  # qwen2-72b's heads
+    "prefill_d16": (8, 4, 2, 4096, 4096, 16, True, None, "bfloat16"),  # the llama smoke config's heads
+    "decode_d16": (8, 4, 2, 1, 4097, 16, False, 4160, "bfloat16"),
+    # the float32 forms (main_lm_f32's own calls are D = 64)
+    "prefill_f32_d128": (2, 16, 16, 1024, 1024, 128, True, None, "float32"),
+    "decode_f32_d128": (8, 16, 16, 1, 4097, 128, False, 4160, "float32"),
+    "prefill_f32_d16": (2, 4, 2, 1024, 1024, 16, True, None, "float32"),
+    "decode_f32_d16": (8, 4, 2, 1, 4097, 16, False, 4160, "float32"),
+}
+
+
+def flash_rows(device) -> dict:
+    """:func:`flash_real` on each of :data:`FLASH_ROWS`."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    out = {}
+    for name, (b, hq, hkv, sq, sk, d, causal, cap, dtype) in FLASH_ROWS.items():
+        q, k, v = flash_operands(gen, b, hq, hkv, sq, sk, d, getattr(torch, dtype), device,
+                                 strided=cap is not None, cap=cap)
+        out[name] = flash_real((q, k, v, causal))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def lm_prefill(cfg, params, tokens):
@@ -1492,10 +1614,9 @@ def lm_profile(cfg, params, tokens, cache, tok, pos: int, tag: str) -> dict:
             wall = time.perf_counter() - t0
         del res
         OUT_DIR.mkdir(parents=True, exist_ok=True)
-        traced = device_busy(prof, OUT_DIR / f"chip_smoke_{tag}_{name}_trace.json")
+        traced = device_busy(prof, OUT_DIR / f"chip_smoke_{tag}_{name}_trace.json", k5=True)
         traced["wall_ms"] = wall * 1e3
         traced["device_idle_share"] = 1.0 - traced["device_busy_ms"] / traced["wall_ms"]
-        traced["flash_attention_ms"] = sum(ms for k, ms in traced["top_device_ms"].items() if "flash_attn" in k)
         out[name] = traced
     return out
 
@@ -1689,10 +1810,11 @@ def main_lm_long(device, params, capture: FlashCapture) -> dict:
             "traced": traced, "vs_plain": vs_plain}
 
 
-def main_lm_f32(device) -> dict:
+def main_lm_f32(device, capture: FlashCapture) -> dict:
     """llama3.2-1b at full width in float32 with TF32 off: batch 2 x 1024
     and 8 decode steps, the kernel path's logits against the plain path's
-    (``chunked_attention``) at :data:`F32_LOGIT_REL_TOL`."""
+    (``chunked_attention``) at :data:`F32_LOGIT_REL_TOL`; K5's first
+    prefill and decode operands kept in ``capture``."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -1703,7 +1825,7 @@ def main_lm_f32(device) -> dict:
     cfg = dataclasses.replace(get_arch("llama3.2-1b").full(), dtype=torch.float32)
     params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED + 1), device=device)
     out = {"arch": cfg.name, "dtype": "float32", "allow_tf32": False, "rel_tolerance": F32_LOGIT_REL_TOL}
-    out.update(lm_prefill_decode_phase(cfg, params, **LM_F32, tag="lm_f32", device=device))
+    out.update(lm_prefill_decode_phase(cfg, params, **LM_F32, tag="lm_f32", device=device, capture=capture))
     rel = out["vs_plain"]["logits_rel_diff"]
     if not rel <= F32_LOGIT_REL_TOL:
         raise AssertionError(f"main_lm_f32: logits differ from the plain path by {rel} of the largest")
@@ -1744,6 +1866,8 @@ def main() -> None:
          ptxas={s: [ln for ln in _build.build_info[s]["log"].splitlines()
                     if "registers" in ln or "spill" in ln] for s in sources})
 
+    emit("flash_sass", **flash_sass())
+
     dev = "cuda"
     emit("kernel_small", **kernel_small(dev))
     emit("kernel_small_flash", **kernel_small_flash(dev))
@@ -1783,14 +1907,18 @@ def main() -> None:
     emit("main_lm_long", **long_out)
     del params
     torch.cuda.empty_cache()
-    f32_out = main_lm_f32(dev)
+    f32_capture = FlashCapture(K5.flash_attention)
+    f32_out = main_lm_f32(dev, f32_capture)
     emit("main_lm_f32", **f32_out)
     flash = {"prefill": flash_real(lm_capture.calls["prefill"]),
              "decode": flash_real(lm_capture.calls["decode"]),
              "prefill_32k": flash_real(long_capture.calls["prefill"]),
-             "decode_32k": flash_real(long_capture.calls["decode"])}
-    del lm_capture, long_capture
+             "decode_32k": flash_real(long_capture.calls["decode"]),
+             "prefill_f32": flash_real(f32_capture.calls["prefill"]),
+             "decode_f32": flash_real(f32_capture.calls["decode"])}
+    del lm_capture, long_capture, f32_capture
     torch.cuda.empty_cache()
+    flash.update(flash_rows(dev))
 
     emit("kernel_real", q=q, v=v, d=d, ell_spmv=real1,
          fused_sweep={**{m: real[m] for m in ("none", "det", "prob")},
@@ -1893,8 +2021,10 @@ def main() -> None:
             "plain_ms": k5["plain_ms"],
             "bound_ms": k5["bound_ms"],
             "bound_by": k5["bound_by"],
+            "device_ms": k5["device_ms"],  # calls queued back to back: no host time between them
             "library_ms": k5["library_ms"],  # scaled_dot_product_attention, a yardstick only
-            "form": "prefill (8 x 4096, bf16, causal)",
+            "form": "prefill (8 x 4096, bf16, causal, D=64)",
+            "head_dims": list(FLASH_DIMS),
             "by_form": flash,
         },
     ]}), flush=True)

@@ -2,14 +2,16 @@
 
 The port of ``repro/kernels/flash_attn.py::flash_attention``: q ``[B, Hq,
 Sq, D]``, k/v ``[B, Hkv, Sk, D]``, query head ``h`` reading KV head
-``h // (Hq // Hkv)``, ``q`` scaled by ``D**-0.5`` in float32, scores and sums
-in float32, the causal mask ``row >= col`` aligned top-left as the TPU
-kernel's (``kernels/ref.py::attention_ref`` aligns it bottom-right; the two
-agree only when Sq == Sk), masked scores at ``-1e30``, the denominator
-floored at ``1e-30``, the output cast to ``q.dtype``.
+``h // (Hq // Hkv)``, scores ``D**-0.5 q.k`` and sums in float32, the causal
+mask ``row >= col`` aligned top-left as the TPU kernel's
+(``kernels/ref.py::attention_ref`` aligns it bottom-right; the two agree
+only when Sq == Sk), masked scores at ``-1e30``, the denominator floored at
+``1e-30``, the output cast to ``q.dtype``.
 
-The CUDA kernel is ``csrc/flash_attn.cu``; its note gives the bound and the
-design (a prefill form and a one-row decode form, both reading strided
+The CUDA kernel is ``csrc/flash_attn.cu``, built for D in
+:data:`HEAD_DIMS`; its note gives the bound and the design (a bf16
+tensor-core prefill, a float32 CUDA-core prefill, and a decode form split
+over the keys whose partials a second kernel merges, all reading strided
 views).  :func:`flash_attention` launches it for CUDA tensors and runs
 :func:`flash_attention_plain`, the plain PyTorch version, for CPU tensors.
 """
@@ -26,8 +28,13 @@ Tensor = torch.Tensor
 
 SOURCE = "flash_attn.cu"
 NEG_INF = -1e30
-HEAD_DIM = 64  # the only head dim the CUDA kernel is built for
+HEAD_DIMS = frozenset({16, 64, 128})  # the head dims the CUDA kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# decode: CTAs to aim for across the key chunks (8 x the H100's 132 SMs),
+# and the chunk granule (the bf16 key tile)
+_DECODE_CTAS = 8 * 132
+_DECODE_GRANULE = 64
+_DECODE_HEADS = 8  # query heads a decode CTA takes (the kernel's Decode::GH)
 # the plain version's score block, in float32 elements (1 GiB)
 _PLAIN_BLOCK = 1 << 28
 
@@ -69,10 +76,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> 
     """Attention of ``q [B, Hq, Sq, D]`` over ``k, v [B, Hkv, Sk, D]``.
 
     float32 or bfloat16 (one dtype for all three), ``Hq % Hkv == 0``, any
-    Sq, Sk >= 1.  k and v may be strided views (a cache prefix); the D axis
-    of each must be unit-stride or the tensor is copied.  CUDA tensors
-    launch the kernel (built on first use; D must be 64); CPU tensors take
-    the plain version.  Anything else raises.
+    Sq, Sk >= 1.  q, k and v may be strided views (a cache prefix); one the
+    kernel's 16-byte loads cannot read (:func:`aligned_for_kernel`) is
+    copied first.  CUDA tensors launch the kernel (built on first use; D in
+    :data:`HEAD_DIMS`), a decode call (Sq = 1) with float32 scratch for its
+    per-chunk partials; CPU tensors take the plain version.  Anything else
+    raises.
     """
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -94,19 +103,26 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> 
         return flash_attention_plain(q, k, v, causal=causal)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {dev}")
-    if d != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel is built for D = {HEAD_DIM}, got {d}")
-    if b > 65535 or hkv > 65535 or hq > 65535:
-        raise ValueError(f"B, Hq and Hkv must be at most 65535 (grid limits), got {b}, {hq}, {hkv}")
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel is built for D in {sorted(HEAD_DIMS)}, got {d}")
+    if b > 65535 or hkv > 65535 or sq > 64 * 65535:
+        raise ValueError(f"B, Hkv and Sq / 64 must be at most 65535 (grid limits), "
+                         f"got {b}, {hkv}, {sq}")
+    q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    chunk = nchunks = 0
+    part = None
+    if sq == 1:
+        chunk, nchunks = decode_split(b, hq, hkv, 1 if causal else sk)
+        part = torch.empty(b * hq * nchunks * (d + 2), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attn_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
-            b, hq, hkv, sq, sk, int(causal), _DTYPES[q.dtype], 1.0 / d**0.5, stream,
+            b, hq, hkv, sq, sk, int(causal), _DTYPES[q.dtype], d, 1.0 / d**0.5,
+            None if part is None else part.data_ptr(), chunk, nchunks, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
@@ -115,10 +131,43 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> 
     return out
 
 
+def decode_split(b: int, hq: int, hkv: int, n: int) -> tuple[int, int]:
+    """Key chunks of a decode call over ``n`` keys: (chunk, count), the chunk
+    a multiple of 64 keys and the count enough that the (chunk, head group,
+    KV head, batch) grid has about :data:`_DECODE_CTAS` CTAs."""
+    per_chunk = b * hkv * -(-(hq // hkv) // _DECODE_HEADS)
+    want = max(1, -(-_DECODE_CTAS // per_chunk))
+    chunk = -(-n // want)
+    chunk = -(-chunk // _DECODE_GRANULE) * _DECODE_GRANULE
+    return chunk, -(-n // chunk)
+
+
+def aligned_for_kernel(t: Tensor) -> bool:
+    """Whether the kernel's 16-byte loads can read ``t`` as it is: a unit
+    D stride, a 16-byte-aligned base, and every other stride of an axis
+    longer than 1 a whole number of 16 bytes."""
+    per16 = 16 // t.element_size()
+    st = t.stride()
+    if st[3] != 1 or t.data_ptr() % 16:
+        return False
+    b, h, s, _ = t.shape  # written out: a decode step checks 3 operands a layer
+    return ((st[0] % per16 == 0 or b == 1) and (st[1] % per16 == 0 or h == 1)
+            and (st[2] % per16 == 0 or s == 1))
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """``t``, or a contiguous copy where the kernel cannot read it as it is."""
+    if aligned_for_kernel(t):
+        return t
+    return t.contiguous() if not t.is_contiguous() else t.clone()
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.flash_attn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:  # typed once a process: a decode step calls this per layer
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib

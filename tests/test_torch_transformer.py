@@ -12,7 +12,7 @@ same operations in another summation order); ``forward`` logits, caches
 and ``decode_step`` over 8 steps at rtol 1e-5, atol 1e-5 (two layers of
 such differences); greedy tokens and the bf16 carry-across exactly.  The
 card's tests (``gpu`` marker) hold the CUDA path, where attention is K5,
-against the CPU's plain path at a head dim of 64.
+against the CPU's plain path at head dims 16 (the smoke config), 64 and 128.
 """
 
 import dataclasses
@@ -312,21 +312,32 @@ def _need_cuda():
         pytest.skip("needs a CUDA device: K5 has no CPU mode")
 
 
-def _cfg64(dtype):
-    """The smoke config at K5's head dim (64)."""
-    return dataclasses.replace(ARCH.smoke(), d_model=256, num_heads=4, num_kv_heads=2, head_dim=64,
-                               d_ff=512, dtype=dtype)
+def _cuda_cfg(name, dtype):
+    """The configs K5 runs on the card in this test: the smoke config itself
+    (head dim 16), and variants at head dims 64 and 128."""
+    smoke = dataclasses.replace(ARCH.smoke(), dtype=dtype)
+    if name == "smoke":
+        return smoke
+    if name == "d64":
+        return dataclasses.replace(smoke, d_model=256, num_heads=4, num_kv_heads=2, head_dim=64, d_ff=512)
+    return dataclasses.replace(smoke, d_model=256, num_heads=4, num_kv_heads=2, head_dim=128, d_ff=512)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cfg_name", ["smoke", "d64", "d128"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_forward_and_decode_match_the_plain_path(dtype):
+def test_cuda_forward_and_decode_match_the_plain_path(dtype, cfg_name):
     """The card's path (K5 for prefill and decode) against the CPU's
-    (chunked_attention) on the same weights: logits at 2e-5 relative in
-    float32 (TF32 off) and at 5e-2 in bfloat16."""
+    (chunked_attention) on the same weights, at head dims 16 (the smoke
+    config), 64 and 128: logits at 2e-5 relative in float32 (TF32 off) and
+    at 5e-2 in bfloat16.  At D = 128 the scale 128**-0.5 is no power of two:
+    chunked_attention rounds q * scale to bfloat16 where K5 scales the
+    float32 scores, so in bfloat16 the two paths also differ by that
+    rounding of q, which the bfloat16 limit holds (in float32 both scale in
+    float32)."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _cfg64(dtype)
+    cfg = _cuda_cfg(cfg_name, dtype)
     params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     dparams = {k: ({n: a.cuda() for n, a in v.items()} if isinstance(v, dict) else v.cuda())
                for k, v in params.items()}
@@ -338,7 +349,8 @@ def test_cuda_forward_and_decode_match_the_plain_path(dtype):
     want, wcache, _ = tf.forward(cfg, params, tokens)
     scale = float(want.float().abs().max())
     torch.testing.assert_close(got.float().cpu() / scale, want.float() / scale, atol=tol, rtol=0)
-    cache = tuple(torch.zeros((cfg.num_layers, 2, 2, 80, 64), dtype=dtype) for _ in range(2))
+    cache = tuple(torch.zeros((cfg.num_layers, 2, cfg.num_kv_heads, 80, cfg.head_dim), dtype=dtype)
+                  for _ in range(2))
     for c, w in zip(cache, wcache):
         c[:, :, :, :70] = w
     dcache = tuple(c.cuda() for c in cache)
