@@ -13,11 +13,16 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                -sass``); the bf16 prefill kernels must have them.
 3. ``kernel_small``  each kernel against its plain PyTorch version at ragged
                small shapes: ``ell_spmv`` for the four semirings (min family
-               bit-exact, ``pr_sum`` at rtol 1e-6); ``fused_sweep`` for four
-               semirings x three drop modes on random stores with full rows,
-               padding and repeated iterations (every output bit-equal;
-               ``pr_sum``'s plain version takes the ELL kernel's expand,
-               which is the same device code); ``bloom_query`` bit-equal;
+               bit-exact, ``pr_sum`` at rtol 1e-6), also on the engine's
+               transposed path at the ragged shapes ``RAGGED`` (a padding
+               cell first, a row of padding only, views off 16-byte
+               alignment); ``fused_sweep`` for four semirings x three drop
+               modes on random stores with full rows, padding and repeated
+               iterations (every output bit-equal; ``pr_sum``'s plain
+               version takes the ELL kernel's expand, which is the same
+               device code), and at ``RAGGED`` in place and out of place,
+               on aligned copies and on misaligned views; ``bloom_query``
+               bit-equal;
                ``diff_lookup`` bit-equal.  ``kernel_small_flash``: K5
                (``flash_attention``) against its plain version at head
                dims 16, 64 and 128 over causal and not, GQA/MQA, ragged
@@ -63,8 +68,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                ``ell_spmv`` on the ``main`` engine's ELL arrays (for
                ``pr_sum`` also one ``torch.sparse.mm`` over the same CSR);
                ``fused_sweep`` on one captured call of each ``main_fused``
-               run (the function's bound, counted on that call's data, and
-               beside it the floor of this design's out-of-place stores);
+               run (its working stores cloned when kept), in place (the
+               main path's form; the stores restored before each call,
+               outside the timed window) and out of place, each bit-equal to
+               the plain version (the function's bound, counted on that
+               call's data, and beside it the floor of the earlier
+               out-of-place design);
                ``bloom_query`` on the prob run's filter, packed, also
                held against ``core.bloom.query`` for every (v, i) probe of
                one query; ``diff_lookup`` on the J and Det stores;
@@ -349,14 +358,20 @@ def compare(semiring, got, want) -> float:
     return float((got[finite] - want[finite]).abs().max()) if bool(finite.any()) else 0.0
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event-timed calls, after ``warmup`` calls."""
+def time_ms(fn, reps: int = 25, warmup: int = 3, setup=None) -> float:
+    """Median of ``reps`` CUDA-event-timed calls, after ``warmup`` calls;
+    ``setup`` (restoring what a call writes in place) runs before each call,
+    outside the timed window."""
     import torch
 
     for _ in range(warmup):
+        if setup is not None:
+            setup()
         fn()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         fn()
@@ -376,9 +391,29 @@ def ell_bound_ms(q: int, v: int, d: int, semiring: str) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data does not start on 16 bytes (the
+    kernels' word paths)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    off = (4 - (buf.data_ptr() // t.element_size()) % 4) % 4 + 1
+    out = buf[off : off + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# ragged shapes of the GPU tests: Q in {1, 3, 8, 9}, V no multiple of a row
+# tile, odd D, D = 101 too wide for K1's shared-memory tiles, S in {4, 6,
+# 16, 32} (Q, V, D, S)
+RAGGED = [(1, 65, 24, 4), (3, 130, 7, 6), (8, 1000, 24, 16), (9, 333, 6, 32), (8, 300, 101, 16)]
+
+
 def kernel_small(device) -> dict:
     """Every kernel against its plain version at ragged small shapes."""
     import torch
+
+    from repro_torch.core import diffstore as ds
 
     from repro_torch.kernels import bloom as K3
     from repro_torch.kernels import diff_lookup as K4
@@ -393,6 +428,24 @@ def kernel_small(device) -> dict:
             args = ell_inputs(rng, q, v, d, semiring, device)
             got = K1.ell_spmv(*args, semiring=semiring, hop_cap=cap)
             err1 = max(err1, compare(semiring, got, K1.ell_spmv_ref(*args, semiring=semiring, hop_cap=cap)))
+        # the engine's transposed path: a padding cell first, a row of
+        # padding only, and views off 16-byte alignment
+        for q, v, d, _ in RAGGED:
+            for form in ("aligned", "states", "adjacency"):
+                states, nbr, w, carry = ell_inputs(rng, q, v, d, semiring, device)
+                nbr[0, 0] = v
+                nbr[1, :] = v
+                w[0, 0] = w[1, :] = 0.0
+                states_t = states.t().contiguous()
+                if form == "states":
+                    states_t = misaligned(states_t)
+                if form == "adjacency":
+                    nbr, w = misaligned(nbr), misaligned(w)
+                got = K1.ell_spmv(states_t, nbr, w, carry, semiring=semiring, hop_cap=cap, transposed=True)
+                err1 = max(err1, compare(semiring, got, K1.ell_spmv_ref(states, nbr, w, carry, semiring=semiring,
+                                                                         hop_cap=cap)))
+                if not torch.equal(got[:, 1], carry[:, 1]):
+                    raise AssertionError(f"{semiring}: a row of padding only moved off its carry")
 
     # K2: all outputs bit-equal; pr_sum's plain version takes the ELL
     # kernel's expand (the same device code), and that expand is held
@@ -414,6 +467,35 @@ def kernel_small(device) -> dict:
                 err2 = max(err2, same_fused(got, want))
                 cases2 += 1
 
+    # K2 in place and out of place at the ragged shapes, with every store,
+    # the states and the adjacency as aligned copies or as views off 16-byte
+    # alignment; in place the outputs must be the stores passed in, and the
+    # old store never changes
+    clone = lambda st, f: ds.DiffStore(*map(f, st))  # noqa: E731
+    cases2i = 0
+    for q, v, d, s in RAGGED:
+        for semiring in K1.SEMIRINGS:
+            for mode in K2.DROP_MODES:
+                args, kw = fused_inputs(rng, q, v, d, s, semiring, mode, device)
+                expand = K1.ell_spmv if semiring == "pr_sum" else K1.ell_spmv_ref
+                want = K2.fused_sweep_ref(*args, **kw, expand=expand)
+                for inplace in (False, True):
+                    for move in (torch.clone, misaligned):
+                        work, old = clone(args[6], move), clone(args[7], move)
+                        old_before = clone(old, torch.clone)
+                        kw2 = {**kw, "states": move(kw["states"].t().contiguous()), "transposed": True,
+                               "nbr": move(kw["nbr"]), "w": move(kw["w"])}
+                        if mode == "det":
+                            kw2["det"] = clone(kw["det"], move)
+                        got = K2.fused_sweep(*args[:6], work, old, **kw2, inplace=inplace)
+                        err2 = max(err2, same_fused(got, want))
+                        if not all(torch.equal(a, b) for a, b in zip(old, old_before)):
+                            raise AssertionError("fused_sweep wrote into the old store")
+                        if inplace and (got.d_iters is not work.iters
+                                        or (mode == "det" and got.det_iters is not kw2["det"].iters)):
+                            raise AssertionError("fused_sweep(inplace=True) returned other stores")
+                        cases2i += 1
+
     # K2's new= variant (VDC): the candidate comes in, nothing depends on
     # the semiring, so one case per drop mode and shape
     cases2n, err2n = 0, 0.0
@@ -423,8 +505,13 @@ def kernel_small(device) -> dict:
             for k in ("states", "nbr", "w", "kcarry"):
                 del kw[k]
             kw["new"] = torch.from_numpy(rng.integers(0, 7, size=(q, v)).astype(np.float32)).to(device)
-            err2n = max(err2n, same_fused(K2.fused_sweep(*args, **kw), K2.fused_sweep_ref(*args, **kw)))
-            cases2n += 1
+            want = K2.fused_sweep_ref(*args, **kw)
+            err2n = max(err2n, same_fused(K2.fused_sweep(*args, **kw), want))
+            work = clone(args[6], misaligned)
+            det = {"det": clone(kw["det"], misaligned)} if mode == "det" else {}
+            err2n = max(err2n, same_fused(K2.fused_sweep(*args[:6], work, args[7], **{**kw, **det},
+                                                         inplace=True), want))
+            cases2n += 2
 
     # K4: ragged N (no multiple of the 256-thread block), S from 1 to 32
     # (6 takes the scalar loads), per-row and scalar query iterations
@@ -451,8 +538,8 @@ def kernel_small(device) -> dict:
     torch.cuda.synchronize()
     return {
         "ell_spmv": {"max_abs_err": err1, "semirings": list(K1.SEMIRINGS)},
-        "fused_sweep": {"cases": cases2, "bit_equal": True, "max_abs_err": err2,
-                        "pr_sum_expand_max_abs_err": expand_err},
+        "fused_sweep": {"cases": cases2, "in_place_and_view_cases": cases2i, "bit_equal": True,
+                        "max_abs_err": err2, "pr_sum_expand_max_abs_err": expand_err},
         "fused_sweep_new": {"cases": cases2n, "bit_equal": True, "max_abs_err": err2n},
         "diff_lookup": {"cases": cases4, "bit_equal": True, "max_abs_err": err4},
         "bloom_query": {"cases": cases3, "bit_equal": True, "max_abs_err": err3},
@@ -488,7 +575,9 @@ def kernel_real(eng, rng) -> dict:
             states = torch.cat([cur, torch.full((q, 1), float("inf"), device=cur.device)], 1)
             carry = cur
         cap = 6.0 if semiring == "min_hop" else float("inf")
-        call = lambda: K.ell_spmv(states, g.nbr, w, carry, semiring=semiring, hop_cap=cap)  # noqa: E731
+        states_t = states.t().contiguous()  # as the engine hands them (transpose_states)
+        call = lambda: K.ell_spmv(states_t, g.nbr, w, carry, semiring=semiring, hop_cap=cap,  # noqa: E731
+                                  transposed=True)
         plain = lambda: K.ell_spmv_ref(states, g.nbr, w, carry, semiring=semiring, hop_cap=cap)  # noqa: E731
         got = call()
         err = compare(semiring, got, plain())
@@ -503,7 +592,7 @@ def kernel_real(eng, rng) -> dict:
             row["library_ms"], lib_err = sparse_mm_yardstick(states, g.nbr, w, carry, got)
             row["library_max_abs_err"] = lib_err
         out[semiring] = row
-        del got
+        del got, states_t
         torch.cuda.empty_cache()
     return out
 
@@ -584,14 +673,26 @@ class EvictionTap:
 class Capture:
     """Wraps ``fused_sweep`` to keep the operands of one call (the first at
     iteration 2, else the first) for timing the kernel at the main path's
-    shapes; it calls the kernel unchanged."""
+    shapes; it calls the kernel unchanged.  From iteration 2 on the sweep
+    writes its D and Det stores in place, so an in-place call's working
+    stores are cloned before the call (later iterations overwrite the
+    originals); an out-of-place call's are the frozen input state's."""
 
     def __init__(self, fn):
         self.fn, self.call = fn, None
 
     def __call__(self, i, *args, **kw):
         if self.call is None or (i == 2 and self.call[0][0] != 2):
-            self.call = ((i, *args), kw)
+            from repro_torch.core import diffstore as ds
+
+            self.call = None  # one kept call's stores on the card at a time
+            kept, kept_kw = args, dict(kw)
+            if kw.get("inplace"):
+                kept = (*args[:5], ds.DiffStore(*(t.clone() for t in args[5])), *args[6:])
+                det = kw.get("det")
+                if det is not None:  # the kernel never writes a Det row's values
+                    kept_kw["det"] = ds.DiffStore(det.iters.clone(), det.vals, det.count.clone())
+            self.call = ((i, *kept), kept_kw)
         return self.fn(i, *args, **kw)
 
 
@@ -623,16 +724,22 @@ def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int
     try:
         for K in counters:
             K.reset_launches()  # ---- the main path starts here
+        at_start = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         eng = tq.sssp(graph, sources, backend=backend, drop=drop, mode=mode, max_iters=48,
                       batch_capacity=chunk, store_capacity=16, device=device)
         init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()  # the chunks' own peak from here
         out = drive_chunks(eng, stream, num_updates=num_updates, chunk=chunk, counters=counters,
                            profile_path=profile_path, capture=capture)
     finally:
         ds.upsert_rows_ = tap.fn
     out.update(backend=backend, engine_mode=mode, drop=None if drop is None else dataclass_dict(drop),
-               engine_init_s=init_s)
+               engine_init_s=init_s, memory_allocated_at_start=at_start,
+               max_memory_allocated_init=init_peak,
+               max_memory_allocated_chunks=out["max_memory_allocated"],
+               max_memory_allocated=max(init_peak, out["max_memory_allocated"]))
     if mode == "vdc":
         out["jstore_evictions"] = 0 if tap.total is None else int(tap.total)
         out["jstore_rows_full"] = int((eng.state.jstore.count >= eng.cfg.jstore_capacity).sum())
@@ -677,7 +784,11 @@ def drive_chunks(eng, stream, *, num_updates: int, chunk: int, counters, profile
     lat, iters = [], []
     peak = nbytes_split(eng)
     n_chunks = num_updates // chunk
+    sweeps_peak = 0
     for c, lo in enumerate(range(0, num_updates, chunk)):
+        if c == n_chunks - 1:
+            # the engine's own peak over the chunks so far: no kept call, no profiler
+            sweeps_peak = torch.cuda.max_memory_allocated()
         if capture is not None and c == n_chunks - 1:
             E.fused_sweep = capture  # the last timed chunk keeps one call's operands
         t0 = time.perf_counter()
@@ -729,6 +840,7 @@ def drive_chunks(eng, stream, *, num_updates: int, chunk: int, counters, profile
         "launches": launches,
         "launches_per_sweep_iter": {k: n / (init_iters + sum(iters)) for k, n in launches.items()},
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated_sweeps": sweeps_peak,
         "traced_chunk": traced,
         "chunk_stats": chunk_stats,
     }
@@ -776,87 +888,146 @@ def drop_policy(mode: str, bloom_bits: int):
                          det_capacity=32, bloom_bits=bloom_bits, bloom_hashes=4, seed=1)
 
 
-def fused_bounds_ms(args, kw) -> tuple[float, float]:
+def fused_bounds_ms(args, kw, out) -> tuple[float, float]:
     """Least time for one ``fused_sweep`` call at 3.35 TB/s, counted two
     ways; the few integer and float operations per byte never bind.
 
     The function's bound reads each input once and writes each output once
-    as this call's data needs them: the iterations of every store row (the
-    probes at ``i``), a value only where its column matches ``i``, and the
-    values and counts of the scheduled rows, which alone the upsert and the
-    removal change and alone need writing back (Det rows likewise; of the
-    Bloom rows one byte per probe).  The out-of-place floor is this design's
-    own: the kernel reads and writes every store row each call, because the
-    frozen pre-update store is also the first iteration's working store.
-    Returns (function bound, out-of-place floor) in ms.
+    as this call's data (and ``out``, its plain version's result) needs
+    them: the [Q, V] inputs; the candidate only for the (q, v) that are
+    scheduled or repair, so the expand's adjacency rows of those vertices
+    and the states of their neighbours, once (the ``new=`` form: those
+    cells of ``new``); the iterations of every store row (the probes at
+    ``i``), a value only where its column matches ``i``, and the values and
+    count of the rows whose content changes (a point stored or removed),
+    which alone need writing back (Det rows likewise: the rows a point is
+    registered in, evicted from or unregistered from; of the Bloom rows one
+    byte per probe).  The out-of-place floor is the earlier design's: every
+    store row read and written each call, the whole adjacency and every
+    state read.  Returns (function bound, out-of-place
+    floor) in ms.
     """
+    import torch
+
     from repro_torch.core import diffstore as ds
 
     i, sched, active, cur, cur_old, stale_old, dstore, old = args
     q, v = sched.shape
     qv, s, so = q * v, dstore.capacity, old.capacity
     mode = kw["drop_mode"]
-    n_sched = int(sched.sum())
-    n_cur = int(ds.has_at(dstore, i).sum())
+    need = sched | out.repair
+    n_need = int(need.sum())
+    has_cur = ds.has_at(dstore, i)
+    n_chg = int((out.to_store | out.vanish | (out.to_drop & has_cur)).sum())
+    n_cur = int(has_cur.sum())
     n_old = int(ds.has_at(old, i).sum())
+    # active, cur + cur_old, sched + stale_old
+    base = q + qv * 4 * 2 + qv * 2
     if kw.get("new") is not None:
-        # the new= variant: the candidate, active, cur + cur_old, sched + stale_old
-        rd = qv * 4 + q + qv * 4 * 2 + qv * 2
+        rd = base + n_need * 4  # the candidate where it is read
+        oop_rd = base + qv * 4
     else:
         d = kw["nbr"].shape[1]
         uses_w = kw["semiring"] in ("min_plus", "pr_sum")
-        # states, adjacency, active, cur + cur_old (+ kcarry), sched + stale_old
-        rd = q * (v + 1) * 4 + v * d * 4 * (2 if uses_w else 1) + q
-        rd += qv * 4 * (2 if kw["kcarry"].data_ptr() == cur.data_ptr() else 3) + qv * 2
+        states = kw["states"] if kw.get("transposed") else kw["states"].t()  # [Vp, Q]
+        rows = need.any(dim=0)
+        nb = kw["nbr"][rows]
+        live = torch.unique(nb[nb != states.shape[0] - 1]).numel() + 1  # and the sentinel
+        own_carry = kw["kcarry"].data_ptr() != cur.data_ptr()
+        rd = base + live * q * 4 + int(rows.sum()) * d * 4 * (2 if uses_w else 1)
+        rd += n_need * 4 if own_carry else 0
+        oop_rd = base + states.numel() * 4 + v * d * 4 * (2 if uses_w else 1)
+        oop_rd += qv * 4 if own_carry else 0
     wr = qv * (4 + 4 + 4 + 7)  # cur, old, evicted_iter, seven masks
     if mode != "none":
         rd += v * 4 + q * 17  # degree, params
+        oop_rd += v * 4 + q * 17
     if mode == "prob":
-        rd += min(q * kw["bloom_bits"].shape[1], qv * kw["bloom_hashes"])
-    fn_rd = rd + qv * s * 4 + n_cur * 4 + n_sched * (s * 4 + 4) + qv * so * 4 + n_old * 4
-    fn_wr = wr + n_sched * (s * 8 + 4)
-    oop_rd = rd + qv * (s * 8 + 4) + qv * (so * 4 + 4)
+        probes = min(q * kw["bloom_bits"].shape[1], qv * kw["bloom_hashes"])
+        rd += probes
+        oop_rd += probes
+    fn_rd = rd + qv * s * 4 + n_cur * 4 + n_chg * (s * 4 + 4) + qv * so * 4 + n_old * 4
+    fn_wr = wr + n_chg * (s * 8 + 4)
+    oop_rd += qv * (s * 8 + 4) + qv * (so * 4 + 4)
     oop_wr = wr + qv * (s * 8 + 4)
     if mode == "det":
         sd = kw["det"].capacity
-        fn_rd += qv * sd * 4 + n_sched * 4
-        fn_wr += n_sched * (sd + 1) * 4 + q * 8
+        n_touch = int((out.to_drop | out.evicted | out.to_store | out.vanish).sum())
+        fn_rd += qv * sd * 4 + n_touch * 4
+        fn_wr += n_touch * (sd + 1) * 4 + q * 8
         oop_rd += qv * (sd + 1) * 4
         oop_wr += qv * (sd + 1) * 4 + q * 8
     return (fn_rd + fn_wr) / HBM_BYTES_PER_S * 1e3, (oop_rd + oop_wr) / HBM_BYTES_PER_S * 1e3
 
 
 def fused_real(capture: Capture) -> dict:
-    """K2 at the main path's shapes: the operands of one captured call,
-    kernel against plain version (bit-equal), timed."""
+    """K2 at the main path's shapes: the operands of one captured call (its
+    working stores cloned when it was kept), timed in its in-place form (the
+    working stores restored from that copy before each call, outside the
+    timed window) and out of place; each held against the plain version bit
+    for bit, on a fresh copy of the stores."""
     import torch
 
+    from repro_torch.core import diffstore as ds
     from repro_torch.kernels import fused_sweep as K2
 
     args, kw = capture.call
-    call = lambda: K2.fused_sweep(*args, **kw)  # noqa: E731
+    kw = {k: x for k, x in kw.items() if k != "inplace"}
+    det = kw.get("det")
+    stores = [*args[6]] + ([det.iters, det.count] if det is not None else [])
+
+    def fresh():
+        work = ds.DiffStore(*(t.clone() for t in args[6]))
+        wdet = None if det is None else ds.DiffStore(det.iters.clone(), det.vals, det.count.clone())
+        return work, wdet
+
+    def in_place(work, wdet):
+        extra = {} if wdet is None else {"det": wdet}
+        return K2.fused_sweep(*args[:6], work, args[7], **{**kw, **extra}, inplace=True)
+
+    out_of_place = lambda: K2.fused_sweep(*args, **kw)  # noqa: E731
     plain = lambda: K2.fused_sweep_ref(*args, **kw)  # noqa: E731
+    host = lambda o: K2.FusedOut(*(None if x is None else x.cpu() for x in o))  # noqa: E731
     # the kernel's outputs wait on the host while the plain version, whose
     # temporaries take tens of GB at this size, runs
-    got = K2.FusedOut(*(None if x is None else x.cpu() for x in call()))
+    got_oop = host(out_of_place())
+    work, wdet = fresh()
+    res = in_place(work, wdet)
+    if res.d_iters is not work.iters or (wdet is not None and res.det_iters is not wdet.iters):
+        raise AssertionError("fused_sweep(inplace=True) did not return the stores it was given")
+    got_ip = host(res)
+    del res
     torch.cuda.empty_cache()
     want = plain()
-    err = same_fused(K2.FusedOut(*(None if x is None else x.to(w.device) for x, w in zip(got, want))), want)
-    del got, want
+    err = 0.0
+    for got in (got_oop, got_ip):
+        err = max(err, same_fused(K2.FusedOut(*(None if x is None else x.to(w.device)
+                                                for x, w in zip(got, want))), want))
+    bound, floor = fused_bounds_ms(args, kw, want)
+    del got_oop, got_ip, want
     torch.cuda.empty_cache()
-    bound, floor = fused_bounds_ms(args, kw)
+    targets = [*work] + ([wdet.iters, wdet.count] if wdet is not None else [])
+
+    def restore():
+        for t, src in zip(targets, stores):
+            t.copy_(src)
+
+    ip_ms = time_ms(lambda: in_place(work, wdet), setup=restore)
     out = {
         "form": "new=" if kw.get("new") is not None else "expand",
         "i": args[0],
         "scheduled": int(args[1].sum()),
         "max_abs_err": err,
-        "ms": time_ms(call),
+        "ms": ip_ms,  # the main path's form at this iteration: in place
+        "in_place_ms": ip_ms,
+        "out_of_place_ms": time_ms(out_of_place),
         "plain_ms": time_ms(plain, reps=3),
         "bound_ms": bound,
         "bound_by": "bytes",
         "out_of_place_floor_ms": floor,
         "library_ms": None,
     }
+    del work, wdet
     torch.cuda.empty_cache()
     return out
 
@@ -990,6 +1161,7 @@ def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
             got = state_leaves(eng.state)
             same_leaves({k: got[k] for k in ell_leaves}, ell_leaves, "fused vs ell engine")
             out["equals_ell_engine"] = True
+            del got  # else the next run starts with this state on the card
         if mode == "prob":
             real["bloom_query"] = bloom_real(eng)
             out["bloom_fill_fraction"] = real["bloom_query"]["fill_fraction"]
@@ -1079,6 +1251,7 @@ def main_vdc(graph0, sources, stream, jod_peak_nbytes: int, *, device, num_updat
             st = eng.state.jstore  # the store as the run leaves it: the next chunk's input
             q, e, sj = st.iters.shape
             real["diff_lookup"] = lookup_real(st.iters.view(q * e, sj), st.vals.view(q * e, sj), 2)
+            del st  # else the next run starts with this J store on the card
         else:
             same_leaves(leaves, first[0], "vdc fused vs coo")
             if chunk_stats != first[1]:
@@ -1969,6 +2142,7 @@ def main() -> None:
             "launches": launches["fused_sweep"],
             "max_abs_err": max(real[m]["max_abs_err"] for m in ("none", "det", "prob")),
             "ms": k2["ms"],
+            "out_of_place_ms": k2["out_of_place_ms"],
             "plain_ms": k2["plain_ms"],
             "bound_ms": k2["bound_ms"],
             "bound_by": "bytes",
@@ -1977,8 +2151,9 @@ def main() -> None:
             "drop_mode": "none",
             "launches_by_run": {k: r["launches"]["fused_sweep"] for k, r in all_runs.items()},
             "by_drop_mode": {m: real[m] for m in ("none", "det", "prob")},
-            "new_variant": {k: k2n[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "out_of_place_floor_ms", "library_ms")},
+            "new_variant": {k: k2n[k] for k in ("max_abs_err", "ms", "out_of_place_ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "out_of_place_floor_ms",
+                                                 "library_ms")},
         },
         {
             "name": "bloom_query",

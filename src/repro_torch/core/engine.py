@@ -55,7 +55,7 @@ from repro_torch.core import dropping as dr
 from repro_torch.core.graph import DynamicGraph, EllIndex, EllOverflow, GraphSnapshot
 from repro_torch.core.semiring import Semiring, reduce_pair
 from repro_torch.kernels.diff_lookup import diff_lookup
-from repro_torch.kernels.ell_spmv import ell_spmv
+from repro_torch.kernels.ell_spmv import ell_spmv, transpose_states
 from repro_torch.kernels.fused_sweep import fused_sweep
 from repro_torch.obs import trace as obs_trace
 
@@ -276,12 +276,14 @@ def _ell_weights(cfg: EngineConfig, g: GraphArrays) -> Tensor:
 
 
 def _ell_operands(cfg: EngineConfig, cur: Tensor, g: GraphArrays) -> dict:
-    """The expand's operands for the ELL and fused kernels: states with the
-    identity sentinel column, the weight tile and the carry."""
+    """The expand's operands for the ELL and fused kernels: the states
+    transposed, ``[V+1, Q]`` with the identity in the sentinel row V that
+    padding cells point at (built in one pass, as the kernels read them),
+    the weight tile and the carry."""
     sr = cfg.semiring
-    pad = torch.full((cur.shape[0], 1), sr.identity, dtype=cur.dtype, device=cur.device)
     return dict(
-        states=torch.cat([cur, pad], dim=1),  # padding cells gather the identity
+        states=transpose_states(cur, sr.identity),
+        transposed=True,
         nbr=g.nbr,
         w=_ell_weights(cfg, g),
         kcarry=cur if sr.carry_prev else torch.full_like(cur, sr.base),
@@ -294,7 +296,7 @@ def ell_step(cfg: EngineConfig, cur: Tensor, g: GraphArrays) -> Tensor:
     sr = cfg.semiring
     return ell_spmv(
         ops["states"], ops["nbr"], ops["w"], ops["kcarry"],
-        semiring=sr.kernel_name, hop_cap=sr.hop_cap,
+        semiring=sr.kernel_name, hop_cap=sr.hop_cap, transposed=True,
     )
 
 
@@ -380,6 +382,7 @@ class _Carry(NamedTuple):
     horizon: Tensor  # int32 — running max change-point iteration (upper bound)
     live: Tensor  # bool — work remains (frontier ∪ dirty nonempty)
     stats: MaintainStats
+    owned: bool  # dstore (and the Det store) are the sweep's own buffers, not its input's
 
 
 class _Step(NamedTuple):
@@ -474,7 +477,11 @@ def _fused_step(
     """One iteration in one ``fused_sweep`` launch; Det rows come back from
     the kernel, Bloom inserts run here (the OR is idempotent, so the bits
     equal the stitched path's).  VDC passes its candidate as ``new=``; JOD
-    runs the expand in the kernel."""
+    runs the expand in the kernel.
+
+    The first iteration writes fresh stores (its working store is the
+    frozen input state's); every later one updates the sweep's own D and
+    Det stores in place, where the reference returns new arrays."""
     sr, mode = cfg.semiring, cfg.drop.mode
     kw: dict = _ell_operands(cfg, c.cur, g) if new is None else {"new": new}
     if cfg.drop.enabled():
@@ -485,7 +492,7 @@ def _fused_step(
             kw.update(bloom_bits=c.drop.flt.bits, bloom_hashes=c.drop.flt.num_hashes)
     out = fused_sweep(
         c.i, sched, active, c.cur, c.cur_old, c.stale_old, c.dstore, old_dstore,
-        semiring=sr.kernel_name, hop_cap=sr.hop_cap, drop_mode=mode, **kw,
+        semiring=sr.kernel_name, hop_cap=sr.hop_cap, drop_mode=mode, inplace=c.owned, **kw,
     )
     drop = c.drop
     if mode == "det":
@@ -602,6 +609,7 @@ def _sweep_body(
         horizon=horizon,
         live=frontier_next.any() | dirty.any(),
         stats=stats,
+        owned=True,  # every step returns new stores or updates owned ones
     )
 
 
@@ -623,7 +631,7 @@ def _maintain_core(
     dropping off ``drop.max_iter`` stays -1.  i == 1 always runs when
     anything is dirty.
     """
-    old_dstore = state.dstore  # frozen: the sweep never writes into it
+    old_dstore = state.dstore  # frozen: the sweep writes only into its own stores
     zeros = torch.zeros(dirty.shape, dtype=torch.bool, device=dirty.device)
     jstore = dirty_pad = j0 = None
     if cfg.mode == "vdc":
@@ -645,6 +653,7 @@ def _maintain_core(
         horizon=stored_horizon(state.dstore),
         live=dirty.any(),
         stats=zeros_stats(dirty.device),
+        owned=False,
     )
     while c.i <= cfg.max_iters:
         # the one host sync of an iteration: all loop scalars at once

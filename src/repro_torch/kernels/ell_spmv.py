@@ -14,7 +14,10 @@ design.  Layout (see ``GraphSnapshot.to_ell``):
     out    [Q, V]
 
 :func:`ell_spmv` launches the kernel for CUDA tensors and runs
-:func:`ell_spmv_ref`, the plain PyTorch version, for CPU tensors.
+:func:`ell_spmv_ref`, the plain PyTorch version, for CPU tensors.  The
+kernel reads the states transposed, ``[Vp, Q]``: the public function
+transposes them, and the engine builds them so in one pass
+(:func:`transpose_states`) and passes ``transposed=True``.
 """
 
 from __future__ import annotations
@@ -46,9 +49,13 @@ def ell_spmv_ref(
     *,
     semiring: str,
     hop_cap: float = float("inf"),
+    transposed: bool = False,
 ) -> torch.Tensor:
     """Plain version: gather ``states[:, nbr]`` → msg → reduce → carry.
-    The counterpart of ``repro/kernels/ref.py::ell_spmv_ref``."""
+    The counterpart of ``repro/kernels/ref.py::ell_spmv_ref``
+    (``transposed``: ``states`` comes as ``[Vp, Q]``)."""
+    if transposed:
+        states = states.t()
     s = states[:, nbr.long()]  # [Q, V, D]
     if semiring == "min_plus":
         return torch.minimum(torch.amin(s + w[None], dim=-1), carry)
@@ -82,6 +89,18 @@ def _check(states, nbr, w, carry) -> tuple[int, int, int]:
     return q, v, d
 
 
+def transpose_states(cur: torch.Tensor, identity: float) -> torch.Tensor:
+    """The expand's states as the kernels read them: ``[V+1, Q]``, row ``v <
+    V`` holding ``cur[:, v]`` and row ``V`` the reduce identity (the row
+    padding cells point at).  One pass over ``cur``; equal to
+    ``torch.cat([cur, identity column], 1).t()``."""
+    q, v = cur.shape
+    out = torch.empty((v + 1, q), dtype=cur.dtype, device=cur.device)
+    out[:v].copy_(cur.t())
+    out[v].fill_(identity)
+    return out
+
+
 def ell_spmv(
     states: torch.Tensor,
     nbr: torch.Tensor,
@@ -90,34 +109,44 @@ def ell_spmv(
     *,
     semiring: str = "min_plus",
     hop_cap: float = float("inf"),
+    transposed: bool = False,
 ) -> torch.Tensor:
     """``out[q, v] = carry[q, v] ⊕ ⊕_d msg(states[q, nbr[v, d]], w[v, d])``.
 
-    CUDA tensors launch the kernel (built on first use); CPU tensors take
-    the plain version.  Anything else raises.
+    ``transposed``: ``states`` comes as ``[Vp, Q]``, the kernel's layout
+    (the engine's path: :func:`transpose_states` builds it in one pass);
+    otherwise the CUDA path makes one transposing copy.  CUDA tensors launch
+    the kernel (built on first use); CPU tensors take the plain version.
+    Anything else raises.
     """
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r}")
-    q, v, d = _check(states, nbr, w, carry)
-    devices = {t.device for t in (states, nbr, w, carry)}
+    states_t = states if transposed else states.t()
+    q, v, d = _check(states_t.t(), nbr, w, carry)
+    devices = {t.device for t in (states_t, nbr, w, carry)}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
     if dev.type == "cpu":
-        return ell_spmv_ref(states, nbr, w, carry, semiring=semiring, hop_cap=hop_cap)
+        return ell_spmv_ref(states_t, nbr, w, carry, semiring=semiring, hop_cap=hop_cap,
+                            transposed=True)
     if dev.type != "cuda":
         raise ValueError(f"ell_spmv runs on cuda or cpu tensors, not {dev}")
-    if max(q, states.shape[1], d) >= 2**31:
+    return _launch(states_t, nbr, w, carry, semiring, hop_cap, dev)
+
+
+def _launch(states_t, nbr, w, carry, semiring, hop_cap, dev) -> torch.Tensor:
+    (vp, q), (v, d) = states_t.shape, nbr.shape
+    if max(q, vp, d) >= 2**31:
         raise ValueError("ell_spmv takes extents below 2**31")
-    states_t = states.t().contiguous()  # [Vp, Q]: one sector per gathered vertex
-    nbr, w, carry = nbr.contiguous(), w.contiguous(), carry.contiguous()
+    states_t, nbr, w, carry = (t.contiguous() for t in (states_t, nbr, w, carry))
     out = torch.empty((q, v), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ell_spmv_launch(
             states_t.data_ptr(), nbr.data_ptr(), w.data_ptr(), carry.data_ptr(),
-            out.data_ptr(), q, v, d, SEMIRINGS.index(semiring), float(hop_cap), stream,
+            out.data_ptr(), q, v, d, vp, SEMIRINGS.index(semiring), float(hop_cap), stream,
         )
     if err != 0:
         raise RuntimeError(f"ell_spmv launch failed: cudaError {err}")
@@ -129,6 +158,6 @@ def ell_spmv(
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.ell_spmv_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

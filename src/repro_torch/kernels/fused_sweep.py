@@ -26,6 +26,12 @@ push, and the Bloom *insert* (prob mode: the engine folds ``to_drop`` and
 :func:`fused_sweep_ref`, the plain PyTorch version (the reference's kernel
 body written with the port's store, drop and Bloom functions), for CPU
 tensors.
+
+Where the reference returns new stores, the port may update the working
+stores in place (``inplace=True``: the D store, and the Det store in det
+mode, are written where they change and come back as the outputs); the
+engine does so from a sweep's second iteration on, when the working stores
+are the sweep's own buffers and not its input state's.
 """
 
 from __future__ import annotations
@@ -104,6 +110,8 @@ def fused_sweep_ref(
     semiring: str = "min_plus",
     hop_cap: float = float("inf"),
     drop_mode: str = "none",
+    inplace: bool = False,
+    transposed: bool = False,
     expand: Callable[..., Tensor] = ell_spmv_ref,
 ) -> FusedOut:
     """Plain version: the reference kernel body, stage for stage.
@@ -114,10 +122,14 @@ def fused_sweep_ref(
 
     ``expand`` computes stage 1 unless ``new`` is given; a check on the
     card passes the ELL kernel's wrapper, whose expand is the CUDA kernel's
-    own, so that ``pr_sum`` can be compared bit for bit.
+    own, so that ``pr_sum`` can be compared bit for bit.  ``inplace``
+    computes the same and then copies the stores into ``dstore`` (and
+    ``det``), which come back as the outputs; ``transposed`` as for
+    :func:`fused_sweep`.
     """
     if new is None:
-        new = expand(states, nbr, w, kcarry, semiring=semiring, hop_cap=hop_cap)
+        new = expand(states, nbr, w, kcarry, semiring=semiring, hop_cap=hop_cap,
+                     transposed=transposed)
     q, v = sched.shape
     dev = sched.device
     v_ids = torch.arange(v, dtype=torch.int32, device=dev)[None, :]
@@ -159,7 +171,7 @@ def fused_sweep_ref(
         to_store, to_drop, vanish, evicted, evicted_iter,
     )
     if drop_mode != "det":
-        return out
+        return _into(out, dstore, None) if inplace else out
 
     # ---- stage 6 (det): register the dropped and evicted points, then
     #      unregister what was stored or vanished
@@ -169,12 +181,29 @@ def fused_sweep_ref(
     det3 = ds.remove_at(det2, i, to_store | vanish)
     hi1 = torch.where(to_drop, i, -1).amax(dim=-1)
     hi2 = torch.where(evicted, evicted_iter, -1).amax(dim=-1)
-    return out._replace(
+    out = out._replace(
         det_iters=det3.iters,
         det_count=det3.count,
         det_overflow=(ev1.sum(dim=-1) + ev2.sum(dim=-1)).to(torch.int32),
         det_max_iter=torch.maximum(hi1, hi2).to(torch.int32),
     )
+    return _into(out, dstore, det) if inplace else out
+
+
+def _into(out: FusedOut, dstore: ds.DiffStore, det: ds.DiffStore | None) -> FusedOut:
+    """``out`` with its stores copied into ``dstore`` (and ``det``), which
+    take their place."""
+    # upsert's evicted_iter is a view of the input row's column 0: keep it
+    out = out._replace(evicted_iter=out.evicted_iter.clone())
+    dstore.iters.copy_(out.d_iters)
+    dstore.vals.copy_(out.d_vals)
+    dstore.count.copy_(out.d_count)
+    out = out._replace(d_iters=dstore.iters, d_vals=dstore.vals, d_count=dstore.count)
+    if det is None:
+        return out
+    det.iters.copy_(out.det_iters)
+    det.count.copy_(out.det_count)
+    return out._replace(det_iters=det.iters, det_count=det.count)
 
 
 # --------------------------------------------------------------------------- the CUDA kernel
@@ -189,7 +218,8 @@ _PTRS = (
     "out_vanish", "out_evicted", "out_evicted_iter",
     "out_det_iters", "out_det_count", "out_det_overflow", "out_det_max_iter",
 )
-_INTS = ("q", "v", "d", "s", "s_old", "s_det", "num_hashes", "i", "semiring", "mode")
+_INTS = ("q", "v", "d", "s", "s_old", "s_det", "num_hashes", "i", "semiring", "mode", "vp",
+         "inplace")
 
 
 class _FusedArgs(ctypes.Structure):
@@ -212,10 +242,10 @@ def _expect(name: str, t: Tensor | None, dtype: torch.dtype, shape: tuple) -> No
         raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
 
 
-def _check(sched, active, cur, cur_old, stale_old, dstore, old_dstore, states, nbr, w,
-           kcarry, new, degree, params, det, bloom_bits, drop_mode) -> list[Tensor]:
+def _check(sched, active, cur, cur_old, stale_old, dstore, old_dstore, states_t, nbr, w,
+           kcarry, new, degree, params, det, bloom_bits, drop_mode, inplace) -> list[Tensor]:
     """Validate every operand; returns the tensors to check for one device."""
-    expand_ops = (states, nbr, w, kcarry)
+    expand_ops = (states_t, nbr, w, kcarry)
     if (new is not None) == any(t is not None for t in expand_ops):
         raise ValueError("fused_sweep takes exactly one of new= or the expand's "
                          "states/nbr/w/kcarry")
@@ -239,17 +269,20 @@ def _check(sched, active, cur, cur_old, stale_old, dstore, old_dstore, states, n
         _expect("kcarry", kcarry, f32, (q, v))
         _expect("nbr", nbr, i32, (v, d))
         _expect("w", w, f32, (v, d))
-        if (states is None or states.dtype != f32 or states.ndim != 2 or states.shape[0] != q
-                or states.shape[1] < v + 1):
-            raise ValueError("states must be float32 [Q, >=V+1], got "
-                             f"{None if states is None else (states.dtype, tuple(states.shape))}")
-        tensors = [kcarry, states, nbr, w]
+        if (states_t is None or states_t.dtype != f32 or states_t.ndim != 2
+                or states_t.shape[1] != q or states_t.shape[0] < v + 1):
+            got = None if states_t is None else (states_t.dtype, tuple(states_t.t().shape))
+            raise ValueError(f"states must be float32 [Q, >=V+1], got {got}")
+        tensors = [kcarry, states_t, nbr, w]
     _expect("dstore.iters", dstore.iters, i32, (q, v, s))
     _expect("dstore.vals", dstore.vals, f32, (q, v, s))
     _expect("dstore.count", dstore.count, i32, (q, v))
     _expect("old_dstore.iters", old_dstore.iters, i32, (q, v, s_old))
     _expect("old_dstore.vals", old_dstore.vals, f32, (q, v, s_old))
     tensors += [sched, active, cur, cur_old, stale_old, *dstore, old_dstore.iters, old_dstore.vals]
+    if inplace and any(_shares(x, y) for x in dstore for y in old_dstore):
+        raise ValueError("fused_sweep(inplace=True) would write into old_dstore: dstore shares "
+                         "its storage")
     if drop_mode == "none":
         return tensors
     _expect("degree", degree, f32, (v,))
@@ -270,6 +303,12 @@ def _check(sched, active, cur, cur_old, stale_old, dstore, old_dstore, states, n
         raise ValueError("fused_sweep needs bloom_bits [Q, M] in prob mode")
     _expect("bloom_bits", bloom_bits, b, (q, bloom_bits.shape[1]))
     return tensors + [bloom_bits]
+
+
+def _shares(x: Tensor, y: Tensor) -> bool:
+    """Do two (nonempty) tensors lie in one storage?"""
+    return (x.numel() > 0 and y.numel() > 0
+            and x.untyped_storage().data_ptr() == y.untyped_storage().data_ptr())
 
 
 def fused_sweep(
@@ -295,41 +334,55 @@ def fused_sweep(
     semiring: str = "min_plus",
     hop_cap: float = float("inf"),
     drop_mode: str = "none",
+    inplace: bool = False,
+    transposed: bool = False,
 ) -> FusedOut:
     """One fused maintenance iteration: a single kernel launch.
 
     Exactly one of two forms: ``states`` [Q, >=V+1] (the identity in column
     V), ``nbr``/``w`` [V, D] and ``kcarry`` [Q, V] feed the in-kernel expand
     (JOD), or ``new`` [Q, V] is the candidate computed outside (VDC: the
-    aggregate over the J store's messages).  ``degree`` [V] (f32
-    total degree) and ``params`` feed the drop selection; ``det`` (det mode)
-    or ``bloom_bits`` bool [Q, M] (prob mode) is the DroppedVT.  CUDA
-    tensors launch the kernel (built on first use); CPU tensors take the
-    plain version.  Anything else raises.
+    aggregate over the J store's messages).  ``transposed``: ``states``
+    comes as [>=V+1, Q], the kernel's layout (the engine builds it so in
+    one pass); otherwise the card's path makes one transposing copy.
+    ``degree`` [V] (f32 total degree) and ``params`` feed the drop
+    selection; ``det`` (det mode) or ``bloom_bits`` bool [Q, M] (prob mode)
+    is the DroppedVT.
+
+    ``inplace``: the outputs' stores are ``dstore`` (and ``det``) themselves,
+    updated where they change; it raises if ``dstore`` shares storage with
+    ``old_dstore``, which must stay frozen.  Otherwise they are new tensors
+    and the inputs stay as they were.
+
+    CUDA tensors launch the kernel (built on first use); CPU tensors take
+    the plain version.  Anything else raises.
     """
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r}")
     if drop_mode not in DROP_MODES:
         raise ValueError(f"unknown drop mode {drop_mode!r}")
-    tensors = _check(sched, active, cur, cur_old, stale_old, dstore, old_dstore, states, nbr,
-                     w, kcarry, new, degree, params, det, bloom_bits, drop_mode)
+    states_t = states if states is None or transposed else states.t()
+    tensors = _check(sched, active, cur, cur_old, stale_old, dstore, old_dstore, states_t, nbr,
+                     w, kcarry, new, degree, params, det, bloom_bits, drop_mode, inplace)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    kw = dict(states=states, nbr=nbr, w=w, kcarry=kcarry, new=new, degree=degree, params=params,
+    kw = dict(nbr=nbr, w=w, kcarry=kcarry, new=new, degree=degree, params=params,
               det=det, bloom_bits=bloom_bits, bloom_hashes=bloom_hashes,
-              semiring=semiring, hop_cap=hop_cap, drop_mode=drop_mode)
+              semiring=semiring, hop_cap=hop_cap, drop_mode=drop_mode, inplace=inplace)
     if dev.type == "cpu":
-        return fused_sweep_ref(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, **kw)
+        return fused_sweep_ref(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore,
+                               states=states_t, transposed=True, **kw)
     if dev.type != "cuda":
         raise ValueError(f"fused_sweep runs on cuda or cpu tensors, not {dev}")
-    return _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, **kw)
+    return _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev,
+                   states_t=states_t, **kw)
 
 
-def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, *, states,
+def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, *, states_t,
             nbr, w, kcarry, new, degree, params, det, bloom_bits, bloom_hashes, semiring,
-            hop_cap, drop_mode) -> FusedOut:
+            hop_cap, drop_mode, inplace) -> FusedOut:
     q, v = sched.shape
     s = dstore.capacity
     s_det = det.capacity if drop_mode == "det" else 0
@@ -338,26 +391,35 @@ def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, 
             f"the fused_sweep kernel takes store capacities up to {MAX_STORE_CAPACITY}, "
             f"got S={s}, S_d={s_det}"
         )
-    if max(q * v * max(s, s_det, old_dstore.capacity), 0 if new is not None else states.numel()) >= 2**62:
+    if max(q * v * max(s, s_det, old_dstore.capacity), 0 if new is not None else states_t.numel()) >= 2**62:
         raise ValueError("fused_sweep extents too large")
+    if new is None and states_t.shape[0] >= 2**31:
+        raise ValueError("fused_sweep takes state rows below 2**31")
     m_bits = bloom_bits.shape[1] if drop_mode == "prob" else 0
     if m_bits >= 2**32:
         raise ValueError("fused_sweep takes Bloom rows below 2**32 bits")
+    stores = [*dstore] + ([det.iters, det.count] if drop_mode == "det" else [])
+    if inplace and not all(t.is_contiguous() for t in stores):
+        raise ValueError("fused_sweep(inplace=True) writes into contiguous stores only")
 
     def empty(*shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     i32, f32, b = torch.int32, torch.float32, torch.bool
+    if inplace:
+        d_out = tuple(dstore)
+    else:
+        d_out = (empty(q, v, s, dtype=i32), empty(q, v, s, dtype=f32), empty(q, v, dtype=i32))
     out = FusedOut(
-        empty(q, v, s, dtype=i32), empty(q, v, s, dtype=f32), empty(q, v, dtype=i32),
+        *d_out,
         empty(q, v, dtype=f32), empty(q, v, dtype=f32),
         *(empty(q, v, dtype=b) for _ in range(7)),
         empty(q, v, dtype=i32),
     )
     if drop_mode == "det":
         out = out._replace(
-            det_iters=empty(q, v, s_det, dtype=i32),
-            det_count=empty(q, v, dtype=i32),
+            det_iters=det.iters if inplace else empty(q, v, s_det, dtype=i32),
+            det_count=det.count if inplace else empty(q, v, dtype=i32),
             det_overflow=torch.zeros(q, dtype=i32, device=dev),
             det_max_iter=torch.full((q,), -1, dtype=i32, device=dev),
         )
@@ -366,7 +428,7 @@ def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, 
         keep = {"new": new.contiguous()}
     else:
         keep = {
-            "states_t": states.t().contiguous(),  # [Vp, Q]: one sector per gathered vertex
+            "states_t": states_t.contiguous(),  # [Vp, Q]: one sector per gathered vertex
             "nbr": nbr.contiguous(), "w": w.contiguous(), "kcarry": kcarry.contiguous(),
         }
     keep.update({
@@ -389,9 +451,10 @@ def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, 
             keep[f"out_{f[2:] if f.startswith('d_') else f}"] = getattr(out, f)
     args = _FusedArgs(
         **{name: keep[name].data_ptr() if name in keep else None for name in _PTRS},
-        bloom_bits=m_bits, q=q, v=v, d=0 if new is not None else nbr.shape[1], s=s, s_old=old_dstore.capacity,
-        s_det=s_det, num_hashes=int(bloom_hashes), i=int(i),
+        bloom_bits=m_bits, q=q, v=v, d=0 if new is not None else nbr.shape[1], s=s,
+        s_old=old_dstore.capacity, s_det=s_det, num_hashes=int(bloom_hashes), i=int(i),
         semiring=SEMIRINGS.index(semiring), mode=DROP_MODES.index(drop_mode),
+        vp=0 if new is not None else states_t.shape[0], inplace=int(inplace),
         hop_cap=float(hop_cap),
     )
     lib = _lib()

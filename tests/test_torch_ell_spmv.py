@@ -93,3 +93,68 @@ def test_ell_spmv_cuda_kernel_matches_plain(semiring, q, v, d):
     assert K.LAUNCHES == before + 1
     want = K.ell_spmv_ref(*arrs, semiring=semiring, hop_cap=_hop_cap(semiring))
     _check(semiring, got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("identity", [float("inf"), 0.0])
+@pytest.mark.parametrize("q,v", [(1, 1), (3, 17), (8, 100)])
+def test_transpose_states_equals_cat_then_transpose(q, v, identity):
+    """The engine's one-pass ``[V+1, Q]`` states equal the two-pass form
+    ``torch.cat([cur, identity column], 1).t()``, bit for bit."""
+    cur = torch.from_numpy(np.random.default_rng(q * v).random((q, v), np.float32))
+    want = torch.cat([cur, torch.full((q, 1), identity)], 1).t()
+    got = K.transpose_states(cur, identity)
+    assert got.is_contiguous() and got.shape == (v + 1, q)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_ell_spmv_takes_transposed_states(semiring):
+    """``transposed=True`` (the engine's path) gives what the public layout
+    gives."""
+    arrs = [torch.from_numpy(x) for x in _ell_inputs(np.random.default_rng(7), 3, 50, 8, semiring)]
+    states, rest = arrs[0], arrs[1:]
+    want = K.ell_spmv(states, *rest, semiring=semiring, hop_cap=_hop_cap(semiring))
+    got = K.ell_spmv(states.t().contiguous(), *rest, semiring=semiring, hop_cap=_hop_cap(semiring),
+                     transposed=True)
+    assert torch.equal(got, want)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data does not start on 16 bytes."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    off = (4 - (buf.data_ptr() // t.element_size()) % 4) % 4 + 1
+    out = buf[off : off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("misaligned", [None, "states", "adjacency"])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("q,v,d", [(1, 65, 24), (3, 130, 7), (8, 1000, 24), (9, 333, 6), (8, 300, 101)])
+def test_ell_spmv_cuda_kernel_ragged_padding_and_views(q, v, d, semiring, misaligned):
+    """Q in {1, 3, 8, 9}, V no multiple of the row tile, odd D, a row that
+    starts with padding and a row of padding only (the kernel takes the
+    sentinel's values for padding cells), a D too wide for the shared-memory
+    tiles (101), and views whose data is not 16-byte aligned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(hash((q, v, d, semiring, misaligned)) % 2**31)
+    states, nbr, w, carry = (torch.from_numpy(x).cuda() for x in _ell_inputs(rng, q, v, d, semiring))
+    nbr[0, 0] = v  # padding first
+    nbr[1, :] = v  # nothing but padding
+    w[0, 0] = w[1, :] = 0.0  # as GraphSnapshot.to_ell writes padding cells
+    states_t = states.t().contiguous()
+    if misaligned == "states":
+        states_t = _misaligned(states_t)
+    if misaligned == "adjacency":
+        nbr, w = _misaligned(nbr), _misaligned(w)
+    before = K.LAUNCHES
+    got = K.ell_spmv(states_t, nbr, w, carry, semiring=semiring, hop_cap=_hop_cap(semiring),
+                     transposed=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    want = K.ell_spmv_ref(states, nbr, w, carry, semiring=semiring, hop_cap=_hop_cap(semiring))
+    _check(semiring, got.cpu().numpy(), want.cpu().numpy())
+    assert torch.equal(got[:, 1], carry[:, 1])  # a row of padding only keeps its carry

@@ -13,6 +13,7 @@ from functools import partial
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import dropping as rdr
 from repro.core import engine as reng
@@ -203,6 +204,52 @@ def test_fused_dispatch_once_per_sweep_iteration(backend, monkeypatch):
     assert iters > 2
     want = {"fused_sweep": iters, "ell_spmv": 0} if backend == "fused" else {"fused_sweep": 0, "ell_spmv": iters}
     assert calls == want
+
+
+# ------------------------------------------------------------ in place
+def _store_leaves(state) -> dict:
+    out = {f"dstore/{k}": getattr(state.dstore, k).clone() for k in ("iters", "vals", "count")}
+    if state.drop.det is not None:
+        out.update({f"det/{k}": getattr(state.drop.det, k).clone() for k in ("iters", "vals", "count")})
+    return out
+
+
+@pytest.mark.parametrize("engine_mode", ["jod", "vdc"])
+@pytest.mark.parametrize("mode", ["none", "det", "prob"])
+def test_fused_sweep_in_place_leaves_the_input_state(mode, engine_mode, monkeypatch):
+    """On ``fused`` the sweep writes its D and Det stores in place from the
+    second iteration on, never the first: ``maintain`` (``apply_updates``)
+    and ``batched_step`` (``apply_updates_batched``) leave the state they
+    were given bit-unchanged, and the port still equals the reference."""
+    forms = []
+
+    def recording(*args, **kw):
+        forms.append(kw["inplace"])
+        return fused_sweep(*args, **kw)
+
+    fused_sweep = teng.fused_sweep
+    monkeypatch.setattr(teng, "fused_sweep", recording)
+    initial, batches = random_workload(seed=11)
+    kw = dict(max_iters=MAX_ITERS, backend="fused", batch_capacity=4, mode=engine_mode)
+    ref = rq.sssp(RGraph(V, initial, capacity=512), [0, V // 2], **kw, **_drop_kw(rdr, mode))
+    port = tq.sssp(TGraph(V, initial, capacity=512), [0, V // 2], device=CPU, **kw, **_drop_kw(tdr, mode))
+    for step, batch in enumerate(batches[:4]):
+        state, before = port.state, _store_leaves(port.state)
+        forms.clear()
+        if step % 2:
+            port.apply_updates_batched(batch, batch_size=4)
+            ref.apply_updates_batched(batch, batch_size=4)
+        else:
+            port.apply_updates(batch)
+            ref.apply_updates(batch)
+        after = _store_leaves(state)
+        assert after.keys() == before.keys()
+        for k in before:
+            assert torch.equal(after[k], before[k]), k
+        assert port.state.dstore.iters.data_ptr() != state.dstore.iters.data_ptr()
+        assert forms and not forms[0] and all(forms[1:])
+        np.testing.assert_array_equal(port.answers(), ref.answers())
+        assert port.nbytes() == ref.nbytes()
 
 
 # ------------------------------------------------------------ carry-across

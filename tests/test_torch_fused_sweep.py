@@ -17,6 +17,7 @@ from repro_torch.core import dropping as dr
 from repro_torch.kernels import bloom as K3
 from repro_torch.kernels import ell_spmv as K1
 from repro_torch.kernels import fused_sweep as K2
+from test_torch_ell_spmv import _misaligned
 
 IMAX = 2**31 - 1
 SEMIRINGS = ["min_plus", "min_hop", "min_label", "pr_sum"]
@@ -159,6 +160,61 @@ def test_fused_sweep_checks_its_operands():
         K2.fused_sweep(*meta, *args[6:], **kw)
 
 
+def _clone(store):
+    return None if store is None else ds.DiffStore(*(t.clone() for t in store))
+
+
+def _new_form(kw, rng, q, v):
+    """The ``new=`` form's kwargs from the expand form's."""
+    kw = {k: x for k, x in kw.items() if k not in ("states", "nbr", "w", "kcarry")}
+    kw["new"] = torch.from_numpy(rng.integers(0, 7, size=(q, v)).astype(np.float32))
+    return kw
+
+
+@pytest.mark.parametrize("form", ["expand", "new"])
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_sweep_inplace_equals_out_of_place(mode, form):
+    """``inplace=True`` computes what ``inplace=False`` computes, leaf for
+    leaf, and writes the stores into ``dstore`` (and ``det``), which come
+    back as the outputs; ``inplace=False`` leaves its inputs as they were."""
+    q, v, d, s = 3, 40, 5, 8
+    rng = np.random.default_rng(hash((mode, form, "inplace")) % 2**31)
+    args, kw = _port_call(_inputs(rng, q, v, d, s, "min_plus", mode), "min_plus", mode)
+    if form == "new":
+        kw = _new_form(kw, rng, q, v)
+    frozen = (_clone(args[6]), _clone(kw.get("det")))
+    want = K2.fused_sweep(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(args[6], frozen[0]))
+    work, det = _clone(args[6]), _clone(kw.get("det"))
+    got = K2.fused_sweep(*args[:6], work, args[7], **{**kw, "det": det}, inplace=True)
+    for name, g, w in zip(K2.FusedOut._fields, got, want):
+        assert (g is None) == (w is None), name
+        assert g is None or (g.dtype == w.dtype and torch.equal(g, w)), name
+    assert (got.d_iters, got.d_vals, got.d_count) == tuple(work)
+    if mode == "det":
+        assert got.det_iters is det.iters and got.det_count is det.count
+        assert torch.equal(det.vals, frozen[1].vals)  # Det rows carry no values: untouched
+    # the plain version, called directly, does the same
+    work2, det2 = _clone(frozen[0]), _clone(frozen[1])
+    ref = K2.fused_sweep_ref(*args[:6], work2, args[7], **{**kw, "det": det2}, inplace=True)
+    assert all(torch.equal(a, b) for a, b in zip(work2, work))
+    assert ref.d_iters is work2.iters
+
+
+def test_fused_sweep_inplace_refuses_to_write_the_old_store():
+    """In place, ``dstore`` may not share storage with ``old_dstore``: the
+    frozen pre-update store would change under the sweep."""
+    rng = np.random.default_rng(3)
+    args, kw = _port_call(_inputs(rng, 2, 10, 3, 4, "min_plus", "none"), "min_plus", "none")
+    old = args[7]
+    with pytest.raises(ValueError, match="old_dstore"):
+        K2.fused_sweep(*args[:6], old, old, **kw, inplace=True)
+    view = ds.DiffStore(old.iters[:, :], args[6].vals, args[6].count)  # one tensor a view of old's
+    with pytest.raises(ValueError, match="old_dstore"):
+        K2.fused_sweep(*args[:6], view, old, **kw, inplace=True)
+    K2.fused_sweep(*args[:6], old, old, **kw)  # out of place it may: the engine's first iteration
+
+
 @pytest.mark.parametrize("q,n,mbits,k", [(1, 64, 1 << 10, 2), (3, 500, 1 << 12, 4), (2, 1024, 1 << 14, 6)])
 def test_bloom_query_matches_reference_kernel(q, n, mbits, k):
     import jax.numpy as jnp
@@ -228,6 +284,46 @@ def test_fused_sweep_cuda_kernel_matches_plain(q, v, d, s, semiring, mode):
             assert g.dtype == w.dtype and torch.equal(g, w), name
     for b, a in zip(before, (*args[1:6], *args[6], *args[7])):
         assert torch.equal(b, a)  # the kernel writes out of place: the frozen store stays
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("q,v,d,s", [(1, 65, 24, 4), (3, 130, 7, 6), (8, 1000, 24, 16), (9, 333, 6, 32)])
+def test_fused_sweep_cuda_kernel_in_place_ragged_and_views(q, v, d, s, semiring, mode, inplace,
+                                                           misaligned):
+    """Both forms of writing, every output bit-equal to the plain version:
+    Q in {1, 3, 8, 9}, V no multiple of the block, odd D, S in {4, 6, 16,
+    32}; ``misaligned``: every store, the states and the adjacency as views
+    that do not start on 16 bytes (the kernel's word paths).  In place the
+    outputs are the stores passed in; the old store never changes."""
+    _need_cuda()
+    rng = np.random.default_rng(hash((q, v, d, s, semiring, mode, inplace, misaligned)) % 2**31)
+    args, kw = _port_call(_inputs(rng, q, v, d, s, semiring, mode), semiring, mode, "cuda")
+    expand = K1.ell_spmv if semiring == "pr_sum" else K1.ell_spmv_ref
+    want = K2.fused_sweep_ref(*args, **kw, expand=expand)
+    move = _misaligned if misaligned else (lambda t: t.clone())
+    work, old = (ds.DiffStore(*map(move, st)) for st in args[6:8])
+    old_before = _clone(old)
+    kw = {**kw, "states": move(kw["states"].t().contiguous()), "transposed": True,
+          "nbr": move(kw["nbr"]), "w": move(kw["w"])}
+    if mode == "det":
+        kw["det"] = ds.DiffStore(*map(move, kw["det"]))
+    n = K2.LAUNCHES
+    got = K2.fused_sweep(*args[:6], work, old, **kw, inplace=inplace)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES == n + 1
+    for name, g, w in zip(K2.FusedOut._fields, got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert all(torch.equal(a, b) for a, b in zip(old, old_before))
+    if inplace:
+        assert got.d_iters is work.iters and got.d_vals is work.vals and got.d_count is work.count
+        if mode == "det":
+            assert got.det_iters is kw["det"].iters
 
 
 @pytest.mark.gpu
