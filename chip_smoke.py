@@ -47,8 +47,28 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                ``ell_spmv``, ``none`` leaf-equal to the ``main`` engine;
                throughput, latency, accounted bytes split into differences
                and DroppedVT, device memory, one profiled chunk.
+   ``main_session``  the session layer at the same size:
+               ``CQPSession(engine="dense", backend="fused",
+               batch_capacity=32, budget_bytes=B)`` with B 60% of the
+               ``main_fused`` none run's peak accounted bytes (the governor
+               provisions Det-Drop at p = 0); 4 SSSP queries registered in
+               one batch, 128 updates, 4 more (the pool grows 4 → 8), 128
+               more, 2 deregistered, one profiled chunk.  Every live query
+               equals SCRATCH, the late ones a ``DiffIFE`` run that had
+               them from the start, each deregistration frees the slot's
+               ``slot_nbytes``, K2 launches once per sweep iteration;
+               throughput, registration walls, the governor's actions, peak
+               accounted bytes against B and the ungoverned run, each
+               ``shed_slot``'s time and device memory.
 6. ``parity_fused``  ``ell`` against ``fused`` at V = 2**16 for the four
                semirings x three drop modes: every state leaf and stat.
+               ``parity_session``: sessions at V = 2**16 whose pools grow
+               1 → 16 by single registrations, with a shed, a join flip and
+               a deregistration between chunks, on coo/ell/fused (JOD),
+               ell/fused (det, prob) and coo/fused (VDC): leaf-equal within
+               a drop mode, JOD equal to SCRATCH; the fused det session's
+               ``export_state`` imports into a CPU engine that ends
+               leaf-equal after one more chunk on both.
 7. ``main_lm``  llama3.2-1b serving at its published widths in bf16
                (weights from a seeded generator): ``make_prefill`` on 8 x
                4096 tokens, 64 greedy ``make_decode`` steps, then
@@ -1268,6 +1288,317 @@ def main_vdc(graph0, sources, stream, jod_peak_nbytes: int, *, device, num_updat
     return runs, real
 
 
+class PeakTimer:
+    """Wraps a function of the session path (``engine.shed_slot``, the
+    governor's reclamation primitive; ``DiffIFE._grow_queries``, the pool's
+    regrow) to time each call with a device sync on both sides and read the
+    card's peak memory during it; it calls the function unchanged.  ``peak``
+    keeps the run's peak across the resets this needs."""
+
+    def __init__(self, fn):
+        import torch
+
+        self.fn, self.calls, self.peak = fn, [], torch.cuda.max_memory_allocated()
+
+    def __call__(self, *args):
+        import torch
+
+        torch.cuda.synchronize()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        self.peak = max(self.peak, peak)
+        self.calls.append({"ms": ms, "max_memory_allocated": peak, "memory_at_start": base,
+                           "memory_above_start": peak - base,
+                           "memory_after": torch.cuda.memory_allocated()})
+        return out
+
+
+def main_session(graph0, stream, sources, none_run: dict, det_run: dict, *, device,
+                 chunk: int) -> dict:
+    """The session layer at full size: ``CQPSession(engine="dense",
+    backend="fused", batch_capacity=32, budget_bytes=B)`` on the main
+    path's graph and stream, ``drop=None`` (the governor provisions Det-Drop
+    at p = 0).  ``B`` is 60% of the ungoverned ``main_fused`` none run's
+    peak accounted bytes in this run.  Registers 4 SSSP sources in one
+    batch (one sweep), streams 128 updates, registers the other 4 (the pool
+    grows from 4 to 8 slots), streams 128 more, deregisters 2, then runs one
+    more chunk under the profiler.  Launch counts are zeroed before the
+    session is built and read after the deregistrations; K2 must launch
+    once per sweep iteration.  Every live query must equal SCRATCH, the 4
+    late ones a ``DiffIFE`` run that had them from the start, and each
+    deregistration must free the ``slot_nbytes`` read before it."""
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.core import plan as qplan
+    from repro_torch.core import queries as tq
+    from repro_torch.core.scratch import scratch_like
+    from repro_torch.core.session import CQPSession
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
+
+    counters = (K1, K2, K3, K4)
+    budget = int(0.6 * none_run["peak_nbytes"])
+    first, late = sources[:4], sources[4:]
+    graph = copy_graph(graph0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shed = PeakTimer(E.shed_slot)
+    grow = PeakTimer(E.DiffIFE._grow_queries)
+    E.shed_slot = shed
+    E.DiffIFE._grow_queries = lambda self: grow(self)
+    lat, chunk_nbytes, chunk_actions, iters = [], [], [], []
+    try:
+        for K in counters:
+            K.reset_launches()  # ---- the main path starts here
+        at_start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sess = CQPSession(graph, engine="dense", backend="fused", batch_capacity=chunk,
+                          budget_bytes=budget, device=device)
+        handles = sess.register_many([qplan.sssp(s, max_iters=48) for s in first])
+        torch.cuda.synchronize()
+        register_first_s = time.perf_counter() - t0
+        eng = sess._impl.impl
+        iters.append(int(eng.last_stats.iters_run))
+        peak_nbytes = sess.nbytes()
+        after_register = {"nbytes": peak_nbytes, "slot_capacity": eng.slot_capacity,
+                          "actions": len(sess.governor.actions)}
+
+        def run_chunks(lo: int, hi: int) -> int:
+            peak = 0
+            for c in range(lo, hi, chunk):
+                t1 = time.perf_counter()
+                st = sess.apply_updates_batched(stream[c : c + chunk])
+                lat.append(time.perf_counter() - t1)  # the governor's pass included
+                iters.append(int(st.iters_run))
+                chunk_nbytes.append(sess.nbytes())
+                chunk_actions.append(len(sess.governor.actions))
+                peak = max(peak, chunk_nbytes[-1])
+            return peak
+
+        peak_nbytes = max(peak_nbytes, run_chunks(0, 128))
+        t0 = time.perf_counter()
+        handles += sess.register_many([qplan.sssp(s, max_iters=48) for s in late])
+        torch.cuda.synchronize()
+        register_late_s = time.perf_counter() - t0
+        eng = sess._impl.impl
+        iters.append(int(eng.last_stats.iters_run))
+        slot_capacity = eng.slot_capacity
+        if slot_capacity != 8:
+            raise AssertionError(f"the pool holds {slot_capacity} slots after 8 registrations")
+        after_late = {"nbytes": sess.nbytes(), "actions": len(sess.governor.actions)}
+        peak_nbytes = max(peak_nbytes, after_late["nbytes"], run_chunks(128, 256))
+        freed = []
+        for h in (handles[1], handles[5]):
+            want = eng.slot_nbytes(sess._handles[h.qid])
+            got = sess.deregister(h)
+            if got != want:
+                raise AssertionError(f"deregister freed {got} bytes, slot_nbytes read {want}")
+            freed.append(got)
+        launches = {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in counters}  # ---- and ends here
+    finally:
+        E.shed_slot = shed.fn
+        E.DiffIFE._grow_queries = grow.fn
+    if launches["fused_sweep"] != sum(iters) or launches["ell_spmv"] != 0:
+        raise AssertionError(f"launches {launches} for {sum(iters)} sweep iterations")
+    del handles[5], handles[1]
+    max_memory = max(shed.peak, grow.peak, torch.cuda.max_memory_allocated())
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = sess.apply_updates_batched(stream[256 : 256 + chunk])
+        wall = time.perf_counter() - t0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    traced = device_busy(prof, OUT_DIR / "chip_smoke_session_chunk_trace.json")
+    traced.update(chunk_wall_ms=wall * 1e3, sweep_iters=int(st.iters_run))
+    traced["device_idle_share"] = 1.0 - traced["device_busy_ms"] / traced["chunk_wall_ms"]
+    peak_nbytes = max(peak_nbytes, sess.nbytes())
+
+    # exactness: every live query against SCRATCH on the final graph
+    slots = [sess._handles[h.qid] for h in handles]
+    got = np.stack([sess.answers(h) for h in handles])
+    if got.shape != (6, graph.num_vertices) or np.isnan(got).any():
+        raise AssertionError(f"bad answers: shape {got.shape}")
+    want = scratch_like(eng.cfg, eng.graph, eng.state.init[slots], device=device).answers()
+    np.testing.assert_array_equal(got, want)
+    gov = sess.stats()["governor"]
+    late_got = got[3:]  # the late sources 0, 2, 3 (1 was deregistered)
+    del want, sess, eng
+    torch.cuda.empty_cache()
+
+    # the late queries against a DiffIFE run that had them from the start
+    ref_eng = tq.sssp(copy_graph(graph0), late, backend="fused", max_iters=48, batch_capacity=chunk,
+                      store_capacity=16, device=device)
+    ref_eng.apply_updates_batched(stream[: 256 + chunk])
+    np.testing.assert_array_equal(late_got, ref_eng.answers()[[0, 2, 3]])
+    del ref_eng, got, late_got
+    torch.cuda.empty_cache()
+
+    timed = lat[1:]  # the first chunk after the registration sweep is warm-up
+    escalations = [a for a in gov["actions"] if a["kind"] == "escalate"]
+    return {
+        "num_vertices": graph0.num_vertices,
+        "queries_registered": len(sources),
+        "queries_live": len(slots),
+        "chunk": chunk,
+        "budget_bytes": budget,
+        "budget_rule": "0.6 x main_fused none's peak_nbytes in this run",
+        "ungoverned_peak_nbytes": none_run["peak_nbytes"],
+        "det_p06_peak_nbytes": det_run["peak_nbytes"],
+        "peak_nbytes": peak_nbytes,
+        "peak_nbytes_vs_budget": peak_nbytes / budget,
+        "peak_nbytes_vs_ungoverned": peak_nbytes / none_run["peak_nbytes"],
+        "final_nbytes": chunk_nbytes[-1],
+        "nbytes_per_chunk": chunk_nbytes,
+        "actions_per_chunk": chunk_actions,
+        "after_first_register": after_register,
+        "after_late_register": after_late,
+        "updates_per_s": chunk * len(timed) / sum(timed),
+        "chunk_latency_ms": [x * 1e3 for x in lat],
+        "p50_chunk_ms": float(np.percentile(timed, 50)) * 1e3,
+        "p99_chunk_ms": float(np.percentile(timed, 99)) * 1e3,
+        "fused_det_updates_per_s": det_run["updates_per_s"],
+        "fused_det_p50_p99_ms": [det_run["p50_chunk_ms"], det_run["p99_chunk_ms"]],
+        "register_first_4_s": register_first_s,  # the engine's build included
+        "fused_none_engine_init_s": none_run["engine_init_s"],  # build + initial sweep, 8 queries
+        "register_late_4_s": register_late_s,  # the 4 → 8 regrow included
+        "regrow": grow.calls,
+        "slot_capacity": slot_capacity,
+        "sweep_iters": iters,
+        "freed_by_deregister": freed,
+        "governor": {k: gov[k] for k in ("passes", "escalations", "deescalations", "levels",
+                                         "overflow_blocked", "det_overflow_shed", "headroom_bytes")},
+        "actions": gov["actions"],
+        "escalation_bytes_freed": sum(a["bytes_freed"] for a in escalations),
+        "top_rung_reached": sorted(int(q) for q, lvl in gov["levels"].items() if lvl >= 4),
+        "sheds": len(shed.calls),
+        "shed_ms": [c["ms"] for c in shed.calls],
+        "shed_ms_max": max((c["ms"] for c in shed.calls), default=None),
+        "shed_max_memory_allocated": max((c["max_memory_allocated"] for c in shed.calls), default=None),
+        "shed_memory_above_start_max": max((c["memory_above_start"] for c in shed.calls), default=None),
+        "memory_allocated_at_start": at_start,
+        "max_memory_allocated": max_memory,
+        "launches": launches,
+        "traced_chunk": traced,
+        "equals_scratch": True,
+        "late_equal_from_start": True,
+    }
+
+
+def parity_session(device, num_vertices: int = 1 << 16) -> dict:
+    """Sessions at V = 2**16 whose pools grow 1 → 16 one registration at a
+    time (8 SSSP queries, a 32-update chunk, 8 more, a second chunk), then a
+    policy rewrite (det/prob: an iterate shed of one query; VDC: its join
+    dropped and re-materialized), a deregistration and a third chunk.  JOD
+    on ``coo``, ``ell`` and ``fused``; det and prob on ``ell`` and
+    ``fused``; VDC on ``coo`` and ``fused``.  Sessions of one drop mode end
+    leaf-equal across backends and JOD answers equal SCRATCH.  The fused
+    det session's ``export_state`` after the second chunk imports into a
+    CPU engine of the port; the third chunk on both ends leaf-equal."""
+    import torch
+
+    from repro_torch.core import dropping as dr
+    from repro_torch.core import engine as E
+    from repro_torch.core import plan as qplan
+    from repro_torch.core.graph import DynamicGraph
+    from repro_torch.core.scratch import scratch_like
+    from repro_torch.core.session import CQPSession
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
+
+    rng = np.random.default_rng(SEED + 5)
+    num_edges = round(num_vertices * PATENTS_E / PATENTS_V)
+    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), 96, 0.2, rng)
+    sources = pick_sources(DynamicGraph(num_vertices, initial), 16, rng)
+    sessions = {  # name: (backend, engine mode, drop mode)
+        "coo": ("coo", "jod", "none"), "ell": ("ell", "jod", "none"), "fused": ("fused", "jod", "none"),
+        "ell_det": ("ell", "jod", "det"), "fused_det": ("fused", "jod", "det"),
+        "ell_prob": ("ell", "jod", "prob"), "fused_prob": ("fused", "jod", "prob"),
+        "vdc_coo": ("coo", "vdc", "none"), "vdc_fused": ("fused", "vdc", "none"),
+    }
+    out, leaves, exported = {}, {}, None
+    for name, (backend, mode, drop_mode) in sessions.items():
+        drop = drop_policy(drop_mode, 1 << 20)
+        for K in (K1, K2, K3, K4):
+            K.reset_launches()
+        sess = CQPSession(DynamicGraph(num_vertices, initial), engine="dense", backend=backend,
+                          mode=mode, drop=drop, batch_capacity=32, device=device)
+        plans = [qplan.sssp(s, max_iters=48, drop=drop) for s in sources]
+        handles, caps = [], []
+        for k, plan in enumerate(plans):
+            handles.append(sess.register(plan))
+            caps.append(sess._impl.impl.slot_capacity)
+            if k == 7:
+                sess.apply_updates_batched(stream[:32])
+        sess.apply_updates_batched(stream[32:64])
+        eng = sess._impl.impl
+        row = {"slot_capacity": caps}
+        if drop is not None:
+            heavier = dataclasses.replace(drop, p=0.9, seed=9)
+            row["shed_freed"] = sess.set_drop_policy(handles[3], heavier)
+            if row["shed_freed"] <= 0:
+                raise AssertionError(f"{name}: the shed freed {row['shed_freed']} bytes")
+        if mode == "vdc":
+            row["join_freed"] = sess.set_drop_policy(handles[2], dr.DropConfig(mode="det", p=1.0),
+                                                     op="join")
+            row["join_back"] = sess.set_drop_policy(handles[2], dr.DropConfig(), op="join")
+            if row["join_freed"] <= 0 or row["join_back"] != 0:
+                raise AssertionError(f"{name}: join flip {row['join_freed']}, {row['join_back']}")
+        row["deregister_freed"] = sess.deregister(handles.pop(5))
+        if name == "fused_det":
+            arrays, meta = eng.export_state()
+            cpu = E.DiffIFE(eng.cfg, copy_graph(eng.graph), np.zeros((eng.cfg.num_queries, num_vertices)),
+                            batch_capacity=32, active=np.zeros(eng.cfg.num_queries, bool), device="cpu")
+            cpu.import_state(arrays, meta)
+            exported = (cpu, len(arrays), meta)
+        sess.apply_updates_batched(stream[64:])
+        row["launches"] = {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in (K1, K2, K3, K4)}
+        need = {"ell": "ell_spmv", "fused": "fused_sweep", "coo": None}[backend]
+        if need is not None and row["launches"][need] == 0:
+            raise AssertionError(f"{name}: no {need} launch")
+        if mode == "vdc" and row["launches"]["diff_lookup"] == 0:
+            raise AssertionError(f"{name}: no diff_lookup launch")
+        live = eng.active_slots()
+        got = eng.answers()[live]
+        want = scratch_like(eng.cfg, eng.graph, eng.state.init[live], device=device).answers()
+        if mode == "jod":
+            np.testing.assert_array_equal(got, want)
+            row["equals_scratch"] = True
+        else:
+            row["scratch_mismatches"] = int((got != want).sum())
+            row["scratch_mismatch_note"] = SCRATCH_MISMATCH_NOTE
+        key = "vdc" if mode == "vdc" else drop_mode
+        got_leaves = {k: x.cpu() for k, x in (vdc_leaves if mode == "vdc" else state_leaves)(eng.state).items()}
+        if key in leaves:
+            same_leaves(got_leaves, leaves[key][1], f"{name} vs {leaves[key][0]}")
+            row["leaf_equal_to"] = leaves[key][0]
+        else:
+            leaves[key] = (name, got_leaves)
+        if name == "fused_det":
+            cpu, n_arrays, meta = exported
+            cpu.apply_updates_batched(stream[64:])
+            same_leaves(state_leaves(cpu.state), got_leaves, "CPU import vs the card")
+            row["export"] = {"arrays": n_arrays, "meta": meta, "cpu_import_leaf_equal": True}
+            del cpu, exported
+        out[name] = row
+        del sess, eng, got_leaves
+        torch.cuda.empty_cache()
+    return {"num_vertices": num_vertices, "num_edges_initial": int(initial.shape[0]),
+            "sources": len(sources), "sessions": out}
+
+
 def parity_vdc(device, num_vertices: int = 1 << 16) -> dict:
     """VDC ``coo`` against VDC ``fused`` (K2's new= variant) for the four
     semirings x three drop modes on a short batched stream: every state
@@ -2068,10 +2399,15 @@ def main() -> None:
     del ell_leaves
     vdc_runs, vdc_real = main_vdc(graph0, qsources, stream, main_out["peak_nbytes"], device=dev,
                                   num_updates=num_updates, chunk=chunk)
+    session_out = main_session(graph0, stream, qsources, runs["none"], runs["det"], device=dev,
+                               chunk=chunk)
+    emit("main_session", **session_out)
     del graph0
+    torch.cuda.empty_cache()
 
     emit("parity_fused", **parity_fused(dev))
     emit("parity_vdc", **parity_vdc(dev))
+    emit("parity_session", **parity_session(dev))
 
     lm_capture, long_capture = FlashCapture(K5.flash_attention), FlashCapture(K5.flash_attention)
     lm_out, params = main_lm(dev, lm_capture)
@@ -2107,9 +2443,9 @@ def main() -> None:
     k3 = real["bloom_query"]
     k4 = vdc_real["diff_lookup"]
     # launches over every main-path run: the ell engine, the three fused
-    # ones and the two VDC ones
+    # ones, the two VDC ones and the governed session
     all_runs = {"ell": main_out, **{f"fused_{m}": r for m, r in runs.items()},
-                **{f"vdc_{b}": r for b, r in vdc_runs.items()}}
+                **{f"vdc_{b}": r for b, r in vdc_runs.items()}, "session": session_out}
     launches = {k: sum(r["launches"][k] for r in all_runs.values())
                 for k in ("ell_spmv", "fused_sweep", "bloom", "diff_lookup")}
     # K5 over the LM runs, each counted from 0: prefill + decode, lm_serve,

@@ -23,7 +23,7 @@ ARCH_NAMES = list(_MODULES)
 def get_arch(name: str):
     key = name.replace("_", "-").lower()
     if key in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP Queue 1 item 12); "
+        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP Queue 1 item 9); "
                        f"ported: {ARCH_NAMES}")
     if key not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}")

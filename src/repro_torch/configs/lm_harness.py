@@ -3,7 +3,7 @@
 
 Shapes (assigned): train_4k (train_step), prefill_32k (prefill), decode_32k
 (serve_step: 1 new token against a seq_len KV cache).  Training and the
-mesh-sharded cells wait for their slices (ROADMAP Queue 1 item 12).
+mesh-sharded cells wait for their slices (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations

@@ -92,12 +92,17 @@ def insert(flt: BloomFilter, v, i, mask: Tensor, salt=0) -> BloomFilter:
     only for the masked keys (the reference scatters every key, the masked-off
     ones to a sacrificial bit); the OR is idempotent, so the bits agree.
     """
+    out = flt._replace(bits=flt.bits.clone())
+    insert_(out, v, i, mask, salt)
+    return out
+
+
+def insert_(flt: BloomFilter, v, i, mask: Tensor, salt=0) -> None:
+    """:func:`insert` into ``flt.bits`` in place."""
     where = mask.nonzero(as_tuple=True)
     pick = lambda x: torch.as_tensor(x, device=mask.device).expand(mask.shape)[where]  # noqa: E731
     probes = _probes(flt, pick(v), pick(i), pick(salt))  # [n, k]
-    bits = flt.bits.clone()
-    bits[(*(ix[:, None] for ix in where[:-1]), probes)] = True
-    return flt._replace(bits=bits)
+    flt.bits[(*(ix[:, None] for ix in where[:-1]), probes)] = True
 
 
 def query(flt: BloomFilter, v, i, salt=0) -> Tensor:

@@ -149,7 +149,7 @@ def upsert(
 UPSERT_SLICE_ROWS = 1 << 22
 
 
-def upsert_rows_(store: DiffStore, i: int, write: Tensor, new_vals: Tensor) -> Tensor:
+def upsert_rows_(store: DiffStore, i: Tensor | int, write: Tensor, new_vals: Tensor) -> Tensor:
     """:func:`upsert` written into ``store`` in place; returns the number of
     rows that shed their oldest change point (int32, on the device), and
     keeps nothing else of the evictions.
@@ -160,19 +160,21 @@ def upsert_rows_(store: DiffStore, i: int, write: Tensor, new_vals: Tensor) -> T
     ``upsert(store, i, write, new_vals)[0]`` while the temporaries stay a
     few hundred MB even when every row is written (a sweep over a store of
     ~1.4e9 cells would otherwise build ten full-size ones).  ``write`` and
-    ``new_vals`` have the store's key shape; the store's tensors must be
-    contiguous.
+    ``new_vals`` (and ``i``, where it is a tensor of iterations per row)
+    have the store's key shape; the store's tensors must be contiguous.
     """
     s = store.capacity
     iters, vals, count = store.iters.view(-1, s), store.vals.view(-1, s), store.count.view(-1)
     rows = write.reshape(-1).nonzero().squeeze(1)
     new_flat = new_vals.reshape(-1)
+    i_flat = i.reshape(-1) if isinstance(i, Tensor) and i.ndim else None
     evicted = torch.zeros((), dtype=torch.int32, device=rows.device)
     for lo in range(0, rows.shape[0], UPSERT_SLICE_ROWS):
         r = rows[lo : lo + UPSERT_SLICE_ROWS]
         part = DiffStore(iters.index_select(0, r), vals.index_select(0, r), count.index_select(0, r))
         ones = torch.ones(r.shape, dtype=torch.bool, device=r.device)
-        out, evict, _ = upsert(part, i, ones, new_flat.index_select(0, r))
+        i_rows = i if i_flat is None else i_flat.index_select(0, r)
+        out, evict, _ = upsert(part, i_rows, ones, new_flat.index_select(0, r))
         iters.index_copy_(0, r, out.iters)
         vals.index_copy_(0, r, out.vals)
         count.index_copy_(0, r, out.count)

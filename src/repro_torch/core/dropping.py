@@ -12,7 +12,6 @@ The port of ``repro/core/dropping.py``.  Two components, as in the paper:
 
 Selection parameters are per query (``[Q]`` rows in :class:`DropParams`);
 the DroppedVT representation and its capacities are session-level.
-``select_stored_to_drop`` comes with the governor slice of the port.
 """
 
 from __future__ import annotations
@@ -202,6 +201,32 @@ def select_to_drop(params: DropParams, degree: Tensor, q, v, i) -> Tensor:
     return torch.where(params.degree_sel[:, None], by_degree, coin)
 
 
+def select_stored_to_drop(
+    params: DropParams, degree: Tensor, iters: Tensor, imax: int, q_ids=None
+) -> Tensor:
+    """Which *stored* change points to shed under the current params. [Q,V,S]
+
+    The governor escalates a query's policy mid-stream; the stored diffs
+    are re-audited with the same stateless coin the sweep uses —
+    ``_uniform01(seed, q, v, i)`` — so a shed drops exactly the points the
+    escalated policy would have dropped at write time.  ``iters`` is the
+    diff-store iteration tensor; entries padded with ``imax`` never select.
+    ``q_ids`` are the query slots of ``iters``' rows (default: 0..Q-1), so
+    one slot's row, with its row of ``params``, is audited alone.
+    """
+    q, v, s = iters.shape
+    dev = iters.device
+    v_ids = torch.arange(v, dtype=torch.int32, device=dev)[None, :, None].expand(q, v, s)
+    deg = degree.to(torch.float32)[None, :, None].expand(q, v, s)
+    if q_ids is None:
+        q_ids = torch.arange(q, dtype=torch.int32, device=dev)
+    q_ids = torch.as_tensor(q_ids, dtype=torch.int32, device=dev).reshape(-1, 1)
+    sel = select_to_drop(
+        params, deg.reshape(q, v * s), q_ids, v_ids.reshape(q, v * s), iters.reshape(q, v * s)
+    )
+    return sel.reshape(q, v, s) & (iters < imax)
+
+
 def register(state: DropState, i, mask: Tensor) -> DropState:
     """Record dropped VT pairs (v, i) where ``mask`` [Q, V].
 
@@ -222,6 +247,26 @@ def register(state: DropState, i, mask: Tensor) -> DropState:
         salt = torch.arange(qn, dtype=torch.int32, device=mask.device)[:, None]
         flt = bloom_lib.insert(state.flt, v_ids, i, mask, salt=salt)
         return state._replace(flt=flt, max_iter=max_iter)
+    return state
+
+
+def register_(state: DropState, i, mask: Tensor, q_offset: int = 0) -> DropState:
+    """:func:`register` written into the Det store (only its marked rows,
+    :func:`diffstore.upsert_rows_`) or the Bloom bits in place; returns the
+    state with ``det_overflow`` and ``max_iter`` advanced.  ``q_offset`` is
+    the query slot of ``mask``'s first row (the Bloom salt), so a view of
+    one slot's rows registers as that slot."""
+    hi = torch.where(mask, torch.as_tensor(i, dtype=torch.int32, device=mask.device), -1).max()
+    state = state._replace(max_iter=torch.maximum(state.max_iter, hi))
+    if state.det is not None:
+        zeros = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+        evicted = ds.upsert_rows_(state.det, i, mask, zeros)
+        return state._replace(det_overflow=state.det_overflow + evicted)
+    if state.flt is not None:
+        qn, vn = mask.shape
+        v_ids = torch.arange(vn, dtype=torch.int32, device=mask.device)[None, :]
+        salt = q_offset + torch.arange(qn, dtype=torch.int32, device=mask.device)[:, None]
+        bloom_lib.insert_(state.flt, v_ids, i, mask, salt=salt)
     return state
 
 

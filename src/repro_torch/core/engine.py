@@ -10,9 +10,11 @@ none, and one of three backends: ``coo`` (scatter-reduce), ``ell`` (the CUDA
 ``ell_spmv`` kernel as the aggregator, JOD only) or ``fused`` (the CUDA
 ``fused_sweep`` kernel: the whole per-vertex iteration in one launch; in VDC
 it takes the aggregated candidate).  The J store's lookups go through the
-CUDA ``diff_lookup`` kernel.  The query-slot pool and the vertex-sharded
-sweep raise :class:`NotImplementedError` until their slices of the port land
-(ROADMAP Queue 1 item 3).
+CUDA ``diff_lookup`` kernel.  The leading Q axis is a pool of query slots
+(``state.active``; :meth:`DiffIFE.register_slots`, ``deregister_slot``,
+geometric regrow) that the session layer (``core/session.py``) drives.  The
+vertex-sharded sweep raises :class:`NotImplementedError` until its slice of
+the port lands (ROADMAP Queue 1 item 4).
 
 Timestamps are eager-merged (§4.2) so each (query, vertex) holds a 1-D sorted
 list of (iteration, state) change points; negative multiplicities are implied
@@ -34,12 +36,15 @@ bounded by ``max_iters``.  The reference runs it as one ``lax.while_loop``;
 here it is a host loop that reads the loop scalars (``live``, ``horizon``,
 ``drop.max_iter``) from the device in one sync per iteration.
 
-Every function below is pure in the engine state: a sweep builds new store
-tensors and leaves its input state as it was, which is how the pre-update
-store stays frozen for δ detection.  The one in-place store is the J store,
-which a sweep clones once and then updates row by row (see
+Every sweep function below is pure in the engine state: a sweep builds new
+store tensors and leaves its input state as it was, which is how the
+pre-update store stays frozen for δ detection.  The one in-place store is
+the J store, which a sweep clones once and then updates row by row (see
 :func:`_maintain_core`).  :func:`batched_step` updates the graph arrays in
-place, where the reference donates them.
+place, where the reference donates them.  Between sweeps, the slot-pool
+edits of :class:`DiffIFE` (register, deregister, :func:`shed_slot`) write
+the affected slot's rows of the engine's own state in place, where the
+reference builds new arrays (``.at[slot].set``).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import bloom as bloom_lib
 from repro_torch.core import diffstore as ds
 from repro_torch.core import dropping as dr
 from repro_torch.core.graph import DynamicGraph, EllIndex, EllOverflow, GraphSnapshot
@@ -60,9 +66,6 @@ from repro_torch.kernels.fused_sweep import fused_sweep
 from repro_torch.obs import trace as obs_trace
 
 Tensor = torch.Tensor
-
-SLOT_POOL = "the slot-pool slice of the port (ROADMAP Queue 1 item 3(f))"
-
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA device; the CPU runs only when asked for."""
@@ -329,15 +332,16 @@ def make_state(
     init: Tensor,
     num_edges: int,
     *,
+    active=None,
     drop_rows: list[dr.DropConfig] | None = None,
     join_rows: list[bool] | None = None,
 ) -> EngineState:
-    """Engine state for ``cfg.num_queries`` slots, all active.
+    """Engine state for ``cfg.num_queries`` slots.
 
-    ``drop_rows`` supplies each slot's selection parameters (default:
-    ``cfg.drop`` broadcast); ``join_rows`` each slot's Join materialization
-    flag (vdc only; default: every slot materializes).  VDC keeps the J
-    store ``[Q, num_edges, S_J]``.
+    ``active`` marks the live slots (default: all); ``drop_rows`` supplies
+    each slot's selection parameters (default: ``cfg.drop`` broadcast);
+    ``join_rows`` each slot's Join materialization flag (vdc only; default:
+    every slot materializes).  VDC keeps the J store ``[Q, num_edges, S_J]``.
     """
     q, v = cfg.num_queries, cfg.num_vertices
     if tuple(init.shape) != (q, v):
@@ -358,7 +362,11 @@ def make_state(
         init=init,
         cur=init,
         repair_counts=torch.zeros((q, v), dtype=torch.int32, device=dev),
-        active=torch.ones((q,), dtype=torch.bool, device=dev),
+        active=(
+            torch.ones((q,), dtype=torch.bool, device=dev)
+            if active is None
+            else torch.as_tensor(np.asarray(active, bool)).to(dev)
+        ),
         join_mat=join_mat,
     )
 
@@ -693,6 +701,47 @@ def maintain(
     return _maintain_core(cfg, state, g, _dirty_2d(cfg, dirty))
 
 
+def shed_slot(cfg: EngineConfig, state: EngineState, g: GraphArrays, slot: int) -> EngineState:
+    """Re-audit ONE query slot's stored diffs under its (just rewritten)
+    selection params: the points the escalated policy selects move from the
+    diff store into the DroppedVT (an 8 B change point becomes a ≤ 4 B Det
+    record, or Bloom bits), exactly as if they had been dropped at write
+    time.  ``cur`` (the answers) is untouched; the sweep repairs dropped
+    points on access (§5).
+
+    The reference audits every ``[Q, V, S]`` entry and masks to the slot;
+    here only the slot's row is audited — the coin is stateless in (seed, q,
+    v, i), so the result is bit-equal — and its D-store row, Det rows or
+    Bloom row are rewritten in place.  Shed points register one store
+    column at a time, as in the reference (the Det store is keyed by
+    (q, v), so several iterations of one vertex cannot land in one upsert);
+    columns with nothing to shed are skipped (one host sync).
+    """
+    drop = state.drop
+    if drop.params is None or not bool(state.active[slot]):
+        return state
+    row = slice(slot, slot + 1)
+    iters, vals, count = (x[row] for x in state.dstore)  # views of the slot's rows
+    params = dr.DropParams(*(x[row] for x in drop.params))
+    mask = dr.select_stored_to_drop(params, _degree(g), iters, ds.IMAX, q_ids=slot)
+    sub = dr.DropState(
+        det=None if drop.det is None else ds.DiffStore(*(x[row] for x in drop.det)),
+        flt=None if drop.flt is None else drop.flt._replace(bits=drop.flt.bits[row]),
+        det_overflow=drop.det_overflow,
+        max_iter=drop.max_iter,
+    )
+    for col in mask.any(dim=1)[0].nonzero().flatten().tolist():
+        sub = dr.register_(sub, iters[..., col], mask[..., col], q_offset=slot)
+    # remove them from the store, keeping each row sorted
+    it = torch.where(mask, ds.IMAX, iters)
+    val = torch.where(mask, 0.0, vals)
+    order = torch.argsort(it, dim=-1, stable=True)
+    iters.copy_(torch.gather(it, -1, order))
+    vals.copy_(torch.gather(val, -1, order))
+    count.copy_((iters < ds.IMAX).sum(dim=-1, dtype=torch.int32))
+    return state._replace(drop=drop._replace(det_overflow=sub.det_overflow, max_iter=sub.max_iter))
+
+
 def reassemble(
     cfg: EngineConfig, state: EngineState, g: GraphArrays, upto: int | None = None
 ) -> Tensor:
@@ -819,12 +868,10 @@ def _span_stats(stats: MaintainStats | None) -> dict:
     return out
 
 
-def _unported(name: str, where: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"DiffIFE.{name} is not ported yet: it comes with {where}")
-
-    method.__name__ = name
-    return method
+def _host_copy(x: Tensor) -> np.ndarray:
+    """A numpy copy of ``x`` that later in-place slot edits cannot reach
+    (``.cpu()`` of a CPU tensor is the tensor itself)."""
+    return x.detach().to("cpu", copy=True).numpy()
 
 
 # --------------------------------------------------------------------------- host-facing wrapper
@@ -846,6 +893,13 @@ class DiffIFE:
     and grows geometrically — with a full re-upload — only when a vertex's
     in-degree outruns it.
 
+    **Query slot pool**: the leading Q axis is a padded pool of query slots
+    gated by ``state.active``.  :meth:`register_slots` claims free slots
+    (doubling the pool when none is left) and computes the new queries'
+    traces in one maintenance sweep whose per-query dirty mask seeds only
+    the new rows; :meth:`deregister_slot` empties a slot's rows and returns
+    the accounted bytes freed.  These edits write the slot's rows in place.
+
     ``device=None`` runs on the CUDA device (and raises without one);
     ``device="cpu"`` runs the plain PyTorch versions.
     """
@@ -858,6 +912,7 @@ class DiffIFE:
         *,
         batch_capacity: int = 32,
         mesh=None,
+        active=None,
         drop_rows: list[dr.DropConfig] | None = None,
         join_rows: list[bool] | None = None,
         device=None,
@@ -865,7 +920,7 @@ class DiffIFE:
         if mesh is not None:
             raise NotImplementedError(
                 "the vertex-sharded sweep (mesh=) is not ported yet: it comes "
-                "with the sharded slice of the port (ROADMAP Queue 1 item 3(g))"
+                "with the sharded slice of the port (ROADMAP Queue 1 item 4)"
             )
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -874,13 +929,26 @@ class DiffIFE:
         self._ell_width = 0
         self._ell_index: EllIndex | None = None
         self.g = self._device_graph(graph.snapshot())
-        init = torch.as_tensor(init, dtype=torch.float32).to(self.device)
-        self.state = make_state(cfg, init, graph.capacity, drop_rows=drop_rows, join_rows=join_rows)
+        # a copy: slot edits write rows of the state in place
+        init = torch.as_tensor(init, dtype=torch.float32).to(self.device, copy=True)
+        self.state = make_state(
+            cfg, init, graph.capacity, active=active, drop_rows=drop_rows, join_rows=join_rows
+        )
+        # descending, so pop() hands out the lowest free slot first
+        self._free_slots: list[int] = sorted(
+            (q for q in range(cfg.num_queries) if active is not None and not bool(active[q])),
+            reverse=True,
+        )
         self.last_stats: MaintainStats | None = None
+        # DroppedVT records lost to Det-Drop evictions during sheds (a shed
+        # runs between sweeps, so MaintainStats.det_overflow never sees them)
+        self.det_overflow_shed = 0
         # cumulative scheduled vertex-reruns across all sweeps
         self._sched_total = 0
-        # initial computation: every vertex dirty, empty store
-        self._run_counted(np.ones(cfg.num_vertices, dtype=bool))
+        # initial computation: every vertex dirty, empty store; an
+        # all-inactive pool (the session's deferred register) skips it
+        if active is None or bool(np.asarray(active).any()):
+            self._run_counted(np.ones(cfg.num_vertices, dtype=bool))
 
     # ------------------------------------------------------------ device views
     def _device_graph(self, snap: GraphSnapshot) -> GraphArrays:
@@ -1031,21 +1099,194 @@ class DiffIFE:
                   ell_row, ell_col, ell_nbr, ell_wv)
         return UpdateBatch(*(torch.from_numpy(x).to(self.device) for x in fields))
 
-    # ------------------------------------------------------- unported surface
-    register_slot = _unported("register_slot", SLOT_POOL)
-    register_slots = _unported("register_slots", SLOT_POOL)
-    deregister_slot = _unported("deregister_slot", SLOT_POOL)
-    set_drop_params = _unported("set_drop_params", "the governor slice of the port (ROADMAP Queue 1 item 6)")
-    export_state = _unported("export_state", SLOT_POOL)
-    import_state = _unported("import_state", SLOT_POOL)
+    # ------------------------------------------------------- query slot pool
+    def _clear_slot(self, slot: int) -> None:
+        """Empty every per-slot row in place: diff stores, DroppedVT,
+        repair counts."""
+        st = self.state
+        for store in (st.dstore, st.jstore, st.drop.det):
+            if store is not None:
+                store.iters[slot] = ds.IMAX
+                store.vals[slot] = 0.0
+                store.count[slot] = 0
+        if st.drop.flt is not None:
+            st.drop.flt.bits[slot] = False
+        st.repair_counts[slot] = 0
+
+    def register_slot(self, init_row, drop_cfg: dr.DropConfig | None = None,
+                      materialize_join: bool | None = None) -> int:
+        """Claim a slot for a new query and compute its trace in-engine.
+
+        ``init_row`` is the query's D_0 ([V]); ``drop_cfg`` its selection
+        policy (default: the engine's).  One maintenance sweep whose dirty
+        mask seeds only the new row initializes the trace; every other
+        registered query is scheduled for zero work.  Returns the slot id.
+        """
+        return self.register_slots([(init_row, drop_cfg, materialize_join)])[0]
+
+    def register_slots(self, requests: list[tuple]) -> list[int]:
+        """Batch form of :meth:`register_slot`: one slot per (init_row,
+        drop_cfg[, materialize_join]) request, ALL the new traces computed
+        in a single maintenance sweep (the per-query dirty mask seeds
+        exactly the new rows).  ``materialize_join`` gates the slot's Join
+        store on vdc engines (None → materialize).  Every request is
+        checked before any slot is touched."""
+        requests = [(req[0], req[1], req[2] if len(req) > 2 else None) for req in requests]
+        rows = []
+        for init_row, drop_cfg, _jm in requests:
+            if drop_cfg is not None:
+                dr.params_row(drop_cfg)  # an unknown selection raises here
+                if drop_cfg.enabled() and drop_cfg.mode != self.cfg.drop.mode:
+                    raise ValueError(
+                        f"plan drop mode {drop_cfg.mode!r} does not match the engine's "
+                        f"DroppedVT representation {self.cfg.drop.mode!r}"
+                    )
+            row = torch.as_tensor(init_row, dtype=torch.float32).to(self.device)
+            if tuple(row.shape) != (self.cfg.num_vertices,):
+                raise ValueError(f"init row shape {tuple(row.shape)} != ({self.cfg.num_vertices},)")
+            rows.append(row)
+        while len(self._free_slots) < len(requests):
+            self._grow_queries()
+        slots = []
+        for row, (_r, drop_cfg, join_flag) in zip(rows, requests):
+            slot = self._free_slots.pop()
+            self._clear_slot(slot)
+            st = self.state
+            st.init[slot] = row
+            st.cur[slot] = row
+            st.active[slot] = True
+            if st.join_mat is not None:
+                st.join_mat[slot] = True if join_flag is None else bool(join_flag)
+            if st.drop.params is not None:
+                cfg = drop_cfg if drop_cfg is not None else self.cfg.drop
+                params = dr.set_params_row(st.drop.params, slot, cfg)
+                self.state = st._replace(drop=st.drop._replace(params=params))
+            slots.append(slot)
+        dirty = np.zeros((self.cfg.num_queries, self.cfg.num_vertices), bool)
+        dirty[slots] = True
+        self._run_counted(dirty)
+        return slots
+
+    def deregister_slot(self, slot: int) -> int:
+        """Retire a query slot: empty its rows, free the slot.  Returns the
+        accounted bytes released (its D/J/DroppedVT rows and, with dropping
+        on, its fixed Bloom and params rows)."""
+        if not bool(self.state.active[slot]):
+            raise ValueError(f"slot {slot} is not active")
+        freed = self.slot_nbytes(slot)
+        self._clear_slot(slot)
+        st = self.state
+        st.init[slot] = self.cfg.semiring.identity
+        st.cur[slot] = self.cfg.semiring.identity
+        st.active[slot] = False
+        if st.join_mat is not None:  # freed slots rejoin the pool materialized
+            st.join_mat[slot] = True
+        drop = st.drop
+        if drop.params is not None:
+            drop = drop._replace(params=dr.set_params_row(drop.params, slot, dr.DropConfig()))
+        if drop.det is not None:
+            # re-anchor the dropped-VT horizon on the surviving rows, so a
+            # retired heavy-drop query stops lengthening later sweeps (a
+            # Bloom filter cannot delete, so prob keeps its anchor)
+            drop = drop._replace(max_iter=stored_horizon(drop.det))
+        self.state = st._replace(drop=drop)
+        self._free_slots.append(slot)
+        self._free_slots.sort(reverse=True)
+        return freed
+
+    def slot_nbytes(self, slot: int) -> int:
+        """Accounted bytes held by one query slot: its D/J rows, its Det
+        records, and (live, with dropping on) its packed Bloom row and
+        params row — the live slots sum to :meth:`nbytes`."""
+        st = self.state
+        parts = [st.dstore.count[slot].sum(dtype=torch.int64) * 8, st.active[slot].to(torch.int64)]
+        if st.jstore is not None:
+            parts.append(st.jstore.count[slot].sum(dtype=torch.int64) * 8)
+        if st.drop.det is not None:
+            parts.append(st.drop.det.count[slot].sum(dtype=torch.int64) * 4)
+        host = torch.stack(parts).tolist()  # one transfer
+        live = bool(host.pop(1))
+        return int(sum(host)) + (self._fixed_slot_bytes() if live else 0)
+
+    def _fixed_slot_bytes(self) -> int:
+        """Bytes every live slot holds whatever it stores: its packed Bloom
+        row and its selection row (dropping on only)."""
+        fixed = 0
+        if self.cfg.drop.enabled():
+            if self.state.drop.flt is not None:
+                fixed += (self.state.drop.flt.num_bits + 7) // 8
+            if self.state.drop.params is not None:
+                fixed += dr.PARAMS_ROW_NBYTES
+        return fixed
+
+    @property
+    def slot_capacity(self) -> int:
+        return self.cfg.num_queries
+
+    def _grow_queries(self) -> None:
+        """Double the slot pool.  Every [Q, ...] leaf pads along the query
+        axis: stores empty, init/cur the semiring identity, new slots
+        inactive and on the free list, Bloom rows clear and selection rows
+        from ``dr.make_params(cfg.drop)``.  The leaves are padded one at a
+        time and each old leaf is released before the next is padded, so
+        the peak is the new pool plus one old leaf."""
+        old_q = self.cfg.num_queries
+        new_q = max(1, old_q * 2)
+        ident = self.cfg.semiring.identity
+
+        def padq(x: Tensor, fill) -> Tensor:
+            out = torch.empty((new_q, *x.shape[1:]), dtype=x.dtype, device=x.device)
+            out[:old_q] = x
+            out[old_q:] = fill
+            return out
+
+        st = self.state
+        stores = {k: None if x is None else list(x) for k, x in
+                  (("dstore", st.dstore), ("jstore", st.jstore), ("det", st.drop.det))}
+        leaves = {"init": st.init, "cur": st.cur, "repair_counts": st.repair_counts,
+                  "active": st.active, "join_mat": st.join_mat,
+                  "bits": None if st.drop.flt is None else st.drop.flt.bits}
+        # the DroppedVT's scalars and selection rows; its big leaves are above
+        drop = st.drop._replace(det=None, flt=None)
+        num_hashes = None if st.drop.flt is None else st.drop.flt.num_hashes
+        join_mat_none = st.join_mat is None
+        del st
+        self.state = None  # the lists above hold the only references now
+        for parts in stores.values():
+            if parts is not None:
+                for j, fill in enumerate((ds.IMAX, 0.0, 0)):
+                    parts[j] = padq(parts[j], fill)
+        fills = {"init": ident, "cur": ident, "repair_counts": 0, "active": False,
+                 "join_mat": True, "bits": False}
+        for k, fill in fills.items():
+            if leaves[k] is not None:
+                leaves[k] = padq(leaves.pop(k), fill)
+        flt = None if num_hashes is None else bloom_lib.BloomFilter(leaves["bits"], num_hashes)
+        params = drop.params
+        if params is not None:
+            fresh = dr.make_params(self.cfg.drop, new_q - old_q, device=self.device)
+            params = dr.DropParams(*(torch.cat([a, b]) for a, b in zip(params, fresh)))
+        det = None if stores["det"] is None else ds.DiffStore(*stores["det"])
+        self.state = EngineState(
+            dstore=ds.DiffStore(*stores["dstore"]),
+            jstore=None if stores["jstore"] is None else ds.DiffStore(*stores["jstore"]),
+            drop=drop._replace(det=det, flt=flt, params=params),
+            init=leaves["init"],
+            cur=leaves["cur"],
+            repair_counts=leaves["repair_counts"],
+            active=leaves["active"],
+            join_mat=None if join_mat_none else leaves["join_mat"],
+        )
+        self.cfg = dataclasses.replace(self.cfg, num_queries=new_q)
+        self._free_slots.extend(range(new_q - 1, old_q - 1, -1))
 
     # ------------------------------------------------------------------- api
     def answers(self) -> np.ndarray:
         return answers(self.cfg, self.state).cpu().numpy()
 
     def answers_row(self, slot: int) -> np.ndarray:
-        """One query slot's final vertex states. [V]"""
-        return self.state.cur[slot].cpu().numpy()
+        """One query slot's final vertex states (a copy). [V]"""
+        return _host_copy(self.state.cur[slot])
 
     def nbytes(self) -> int:
         return nbytes_accounted(self.cfg, self.state)
@@ -1053,62 +1294,64 @@ class DiffIFE:
     def active_slots(self) -> list[int]:
         return torch.nonzero(self.state.active).flatten().tolist()
 
-    def _iterate_bytes(self) -> tuple[np.ndarray, int]:
+    def _slot_bytes(self) -> tuple[np.ndarray, np.ndarray | None, list[int]]:
         """Per slot, the Iterate operator's bytes that vary by slot (its
-        change points and Det records) and the fixed per-live-slot part (its
-        packed Bloom row and selection row)."""
+        change points and Det records), its J-store bytes (vdc, else None),
+        and the live slots: reduced on the device, one transfer."""
         st = self.state
-        per = st.dstore.count.sum(dim=1).cpu().numpy() * 8  # int32 sums to int64
+        per = st.dstore.count.sum(dim=1, dtype=torch.int64) * 8
         if st.drop.det is not None:
-            per = per + st.drop.det.count.sum(dim=1).cpu().numpy() * 4
-        fixed = 0
-        if self.cfg.drop.enabled():
-            if st.drop.flt is not None:
-                fixed += (st.drop.flt.num_bits + 7) // 8
-            if st.drop.params is not None:
-                fixed += dr.PARAMS_ROW_NBYTES
-        return per, fixed
-
-    def _join_bytes(self) -> np.ndarray | None:
-        if self.state.jstore is None:
-            return None
-        return self.state.jstore.count.sum(dim=1).cpu().numpy() * 8
+            per = per + st.drop.det.count.sum(dim=1, dtype=torch.int64) * 4
+        rows = [per, st.active.to(torch.int64)]
+        if st.jstore is not None:
+            rows.append(st.jstore.count.sum(dim=1, dtype=torch.int64) * 8)
+        host = torch.stack(rows).cpu().numpy()
+        live = np.nonzero(host[1])[0].tolist()
+        return host[0], (host[2] if st.jstore is not None else None), live
 
     def nbytes_per_query(self) -> dict[int, int]:
         """slot → accounted bytes, for every live slot; they sum to
         :meth:`nbytes`."""
-        per, fixed = self._iterate_bytes()
-        per_j = self._join_bytes()
+        per, per_j, live = self._slot_bytes()
         if per_j is not None:
             per = per + per_j
-        return {s: int(per[s]) + fixed for s in self.active_slots()}
+        fixed = self._fixed_slot_bytes()
+        return {s: int(per[s]) + fixed for s in live}
 
     def nbytes_per_operator(self) -> dict[int, dict[str, int]]:
         """slot → {op_id → accounted bytes}: ``"iterate"`` carries the
         change-point rows plus the slot's DroppedVT/params footprint,
         ``"join"`` (vdc) its J-store rows.  Per slot they sum to
         :meth:`nbytes_per_query`'s entry."""
-        per_d, fixed = self._iterate_bytes()
-        per_j = self._join_bytes()
+        per_d, per_j, live = self._slot_bytes()
+        fixed = self._fixed_slot_bytes()
         out: dict[int, dict[str, int]] = {}
-        for s in self.active_slots():
+        for s in live:
             ops = {"iterate": int(per_d[s]) + fixed}
             if per_j is not None:
                 ops["join"] = int(per_j[s])
             out[s] = ops
         return out
 
+    def _repairs_per_slot(self) -> tuple[np.ndarray, list[int]]:
+        """Per slot, the cumulative repair count, and the live slots (one
+        transfer)."""
+        st = self.state
+        host = torch.stack(
+            [st.repair_counts.sum(dim=1, dtype=torch.int64), st.active.to(torch.int64)]
+        ).cpu().numpy()
+        return host[0], np.nonzero(host[1])[0].tolist()
+
     def recompute_cost_per_query(self) -> dict[int, int]:
         """slot → cumulative dropped-diff repair count."""
-        per = self.state.repair_counts.sum(dim=1).cpu().numpy()
-        return {s: int(per[s]) for s in self.active_slots()}
+        per, live = self._repairs_per_slot()
+        return {s: int(per[s]) for s in live}
 
     def recompute_cost_per_operator(self) -> dict[int, dict[str, int]]:
         """slot → {op_id → cumulative recompute cost}: ``"iterate"`` is the
         slot's repair count; ``"join"`` (vdc) the cumulative scheduled
         vertex-rerun volume shared evenly across live slots."""
-        per = self.state.repair_counts.sum(dim=1).cpu().numpy()
-        live = self.active_slots()
+        per, live = self._repairs_per_slot()
         share = self._sched_total // max(len(live), 1)
         out: dict[int, dict[str, int]] = {}
         for s in live:
@@ -1156,3 +1399,148 @@ class DiffIFE:
         dirty[slot] = True
         self._run_counted(dirty)
         return 0
+
+    def set_drop_params(self, slot: int, drop_cfg: dr.DropConfig, op_id: str = "iterate") -> int:
+        """Rewrite a LIVE slot's drop policy for ONE operator.
+
+        ``op_id="iterate"`` (default) rewrites the slot's §5 selection row
+        and sheds its stored diffs under the new policy (:func:`shed_slot`).
+        ``op_id="join"`` routes to :meth:`set_join_store`: an enabled config
+        (complete dropping) drops the slot's join trace, a disabled one
+        re-materializes it.  Returns the accounted bytes released (≥ 0 for
+        iterate: a shed trades 8 B change points for ≤ 4 B DroppedVT records
+        or Bloom bits).
+        """
+        if op_id == "join":
+            if drop_cfg.enabled() and not drop_cfg.drops_all():
+                raise ValueError(
+                    "the join's differences drop completely (p ≥ 1); "
+                    "partial join dropping is unsupported"
+                )
+            return self.set_join_store(slot, not drop_cfg.enabled())
+        if op_id != "iterate":
+            raise ValueError(f"operator {op_id!r} owns no engine difference store")
+        if not bool(self.state.active[slot]):
+            raise ValueError(f"slot {slot} is not active")
+        if self.state.drop.params is None:
+            if drop_cfg.enabled():
+                raise ValueError(
+                    "cannot enable dropping on an engine built without a "
+                    "DroppedVT representation (cfg.drop.mode='none')"
+                )
+            return 0
+        if drop_cfg.enabled() and drop_cfg.mode != self.cfg.drop.mode:
+            raise ValueError(
+                f"drop mode {drop_cfg.mode!r} does not match the engine's "
+                f"DroppedVT representation {self.cfg.drop.mode!r}"
+            )
+        before = self.slot_nbytes(slot)
+        drop = self.state.drop
+        self.state = self.state._replace(
+            drop=drop._replace(params=dr.set_params_row(drop.params, slot, drop_cfg))
+        )
+        if drop_cfg.enabled():
+            ovf_before = int(self.state.drop.det_overflow)
+            self.state = shed_slot(self.cfg, self.state, self.g, slot)
+            self.det_overflow_shed += int(self.state.drop.det_overflow) - ovf_before
+        return before - self.slot_nbytes(slot)
+
+    # ------------------------------------------------------------ durability
+    def export_state(self) -> tuple[dict[str, np.ndarray], dict]:
+        """(arrays, meta) snapshot of the difference trace, host copies.
+
+        The keys, dtypes and ``meta`` are the reference's, so a snapshot of
+        either package imports into the other: stores as
+        ``"{dstore,jstore,drop_det}/{iters,vals,count}"`` (the J store in
+        its edge-slot layout ``[Q, E_cap, S_J]``, which is this engine's
+        own), ``"drop_flt/bits"``, ``"drop/det_overflow"``,
+        ``"drop/max_iter"``, ``"drop_params/<field>"`` (the seed as
+        uint32), ``init``, ``cur``, ``repair_counts``, ``active`` and
+        ``join_mat``.
+        """
+        st = self.state
+        arrays: dict[str, np.ndarray] = {}
+
+        def put_store(prefix: str, store: ds.DiffStore) -> None:
+            for k in ("iters", "vals", "count"):
+                arrays[f"{prefix}/{k}"] = _host_copy(getattr(store, k))
+
+        put_store("dstore", st.dstore)
+        if st.jstore is not None:
+            put_store("jstore", st.jstore)
+        drop = st.drop
+        if drop.det is not None:
+            put_store("drop_det", drop.det)
+        if drop.flt is not None:
+            arrays["drop_flt/bits"] = _host_copy(drop.flt.bits)
+        arrays["drop/det_overflow"] = _host_copy(drop.det_overflow)
+        arrays["drop/max_iter"] = _host_copy(drop.max_iter)
+        if drop.params is not None:
+            for f in dr.DropParams._fields:
+                x = _host_copy(getattr(drop.params, f))
+                arrays[f"drop_params/{f}"] = x.astype(np.uint32) if f == "seed" else x
+        for k in ("init", "cur", "repair_counts", "active"):
+            arrays[k] = _host_copy(getattr(st, k))
+        if st.join_mat is not None:
+            arrays["join_mat"] = _host_copy(st.join_mat)
+        meta = {
+            "slot_capacity": self.cfg.num_queries,
+            "mode": self.cfg.mode,
+            "free_slots": [int(s) for s in self._free_slots],
+            "det_overflow_shed": int(self.det_overflow_shed),
+            "sched_total": int(self._sched_total),
+            "ell_width": int(self._ell_width),
+        }
+        return arrays, meta
+
+    def import_state(self, arrays: dict, meta: dict) -> None:
+        """Load a snapshot produced by :meth:`export_state` (of this package
+        or the reference).  The engine must have been built for the same
+        graph and slot capacity (an all-inactive pool skips the initial
+        sweep, so building one is cheap)."""
+        if int(meta["slot_capacity"]) != self.cfg.num_queries:
+            raise ValueError(
+                f"checkpoint has {meta['slot_capacity']} query slots but the "
+                f"engine was built with {self.cfg.num_queries}"
+            )
+
+        def put(x) -> Tensor:
+            return torch.from_numpy(np.array(x, copy=True)).to(self.device)
+
+        def get_store(prefix: str) -> ds.DiffStore:
+            return ds.DiffStore(*(put(arrays[f"{prefix}/{k}"]) for k in ("iters", "vals", "count")))
+
+        flt = params = None
+        if "drop_flt/bits" in arrays:
+            flt = bloom_lib.BloomFilter(put(arrays["drop_flt/bits"]), self.cfg.drop.bloom_hashes)
+        if "drop_params/p" in arrays:
+            params = dr.DropParams(*(
+                put(np.asarray(arrays[f"drop_params/{f}"]).astype(np.int64) if f == "seed"
+                    else arrays[f"drop_params/{f}"])
+                for f in dr.DropParams._fields
+            ))
+        self.state = EngineState(
+            dstore=get_store("dstore"),
+            jstore=get_store("jstore") if "jstore/iters" in arrays else None,
+            drop=dr.DropState(
+                det=get_store("drop_det") if "drop_det/iters" in arrays else None,
+                flt=flt,
+                det_overflow=put(arrays["drop/det_overflow"]),
+                max_iter=put(arrays["drop/max_iter"]),
+                params=params,
+            ),
+            init=put(arrays["init"]),
+            cur=put(arrays["cur"]),
+            repair_counts=put(arrays["repair_counts"]),
+            active=put(arrays["active"]),
+            join_mat=put(arrays["join_mat"]) if "join_mat" in arrays else None,
+        )
+        self._free_slots = [int(s) for s in meta["free_slots"]]
+        self.det_overflow_shed = int(meta["det_overflow_shed"])
+        self._sched_total = int(meta["sched_total"])
+        width = int(meta.get("ell_width", 0))
+        if self.cfg.backend in ("ell", "fused") and width > self._ell_width:
+            # the saved run had grown its ELL width: match it
+            self._ell_width = width
+            self.g = self._device_graph(self.graph.snapshot())
+        self.last_stats = None

@@ -361,3 +361,28 @@ class EllIndex:
                 row, col = int(self.row_of[slot]), int(self.col_of[slot])
                 writes[(row, col)] = EllWrite(row, col, u, float(w))
         return list(writes.values())
+
+
+def product_graph(
+    g: "DynamicGraph | GraphSnapshot",
+    nfa_delta: dict[int, list[tuple[int, int]]],
+    num_states: int,
+) -> tuple[int, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """RPQ product construction: vertex (v, q) with id ``v * num_states + q``.
+
+    ``nfa_delta`` maps edge label → list of (q, q') NFA transitions.  Returns
+    ``(num_product_vertices, src, dst, w, parent_edge_slot)`` COO arrays (one
+    product edge per (graph edge, matching transition)).
+    """
+    live = np.nonzero(g.valid)[0]
+    srcs, dsts, slots = [], [], []
+    for e in live:
+        for (q, q2) in nfa_delta.get(int(g.label[e]), ()):
+            srcs.append(int(g.src[e]) * num_states + q)
+            dsts.append(int(g.dst[e]) * num_states + q2)
+            slots.append(int(e))
+    n = g.num_vertices * num_states
+    src = np.asarray(srcs, dtype=np.int32)
+    dst = np.asarray(dsts, dtype=np.int32)
+    w = np.ones(len(srcs), dtype=np.float32)
+    return n, src, dst, w, np.asarray(slots, dtype=np.int32)

@@ -7,7 +7,8 @@ fixed-batch API: the query set is fixed at construction).
 SPSP/SSSP/K-hop are *continuous registered queries* (Q of them batched in the
 leading axis); WCC and PageRank are single batch computations (Q=1).  Every
 builder takes ``device`` (default: the CUDA device; ``"cpu"`` runs the plain
-PyTorch versions).  RPQ comes with the session slice of the port.
+PyTorch versions).  :class:`RPQ` wraps a session, which owns the
+product-graph translation.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from repro_torch.core import dropping as dr
 from repro_torch.core import plan as qplan
 from repro_torch.core.engine import DiffIFE
 from repro_torch.core.graph import DynamicGraph
-from repro_torch.core.session import engine_config_for
+from repro_torch.core.plan import NFA
+from repro_torch.core.session import CQPSession, engine_config_for
 
 
 def engine_from_plans(
@@ -163,3 +165,68 @@ def pagerank(
     return engine_from_plans(
         graph, plans, batch_capacity=batch_capacity, mesh=mesh, drop=drop, **kw
     )
+
+
+# --------------------------------------------------------------------------- RPQ
+class RPQ:
+    """Continuous RPQ evaluation via Diff-IFE on the NFA-product graph.
+
+    A wrapper over :class:`~repro_torch.core.session.CQPSession`: the
+    session owns the product-graph construction and translates base-graph
+    updates into product updates (one product edge per matching NFA
+    transition); the engine maintains reachability (min-hop semiring) from
+    (source, start).
+    """
+
+    def __init__(
+        self,
+        graph: DynamicGraph,
+        nfa: NFA,
+        sources: Sequence[int],
+        *,
+        max_iters: int = 64,
+        product_capacity: int | None = None,
+        batch_capacity: int = 32,
+        drop: dr.DropConfig | None = None,
+        join_store: str = "auto",
+        **kw,
+    ) -> None:
+        self.base = graph
+        self.nfa = nfa
+        self.sources = [int(s) for s in sources]
+        self.session = CQPSession(
+            graph,
+            engine="dense",
+            batch_capacity=batch_capacity,
+            product_capacity=product_capacity,
+            min_slots=len(self.sources),
+            drop=drop,
+            **kw,
+        )
+        self.handles = self.session.register_many(
+            [
+                qplan.rpq(s, nfa, max_iters=max_iters, drop=drop, join_store=join_store)
+                for s in self.sources
+            ]
+        )
+
+    @property
+    def pgraph(self) -> DynamicGraph:
+        return self.session._egraph
+
+    @property
+    def engine(self) -> DiffIFE:
+        return self.session._impl.impl
+
+    def _translate(self, updates) -> list[tuple[int, int, int, float, int]]:
+        return self.session._translate(updates)
+
+    def apply_updates(self, updates):
+        return self.session.apply_updates(updates)
+
+    def reachable(self) -> np.ndarray:
+        """bool [Q, V_base]: which base vertices match the RPQ per source."""
+        return np.stack([self.session.reachable(h) for h in self.handles])
+
+    def nbytes(self) -> int:
+        return self.session.nbytes()

@@ -31,7 +31,7 @@ from repro_torch.models import common as cm
 
 Tensor = torch.Tensor
 
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 12)"
+NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 9)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -319,13 +319,16 @@ def test_unported_configurations_raise():
         tq.sssp(g, [0], mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="realizes JOD"):
         tq.sssp(g, [0], mode="vdc", backend="ell", device=CPU)
-    # dropping, the fused backend and VDC are ported: this engine builds
+    # dropping, the fused backend, VDC and the slot pool are ported: this
+    # engine builds, and the pool's surface runs (tests/test_torch_slot_pool.py
+    # holds it against the reference)
     eng = tq.sssp(g, [0], backend="fused", mode="vdc", drop=tdr.DropConfig(mode="det", p=0.5), device=CPU)
-    for name in ("register_slot", "deregister_slot", "export_state", "import_state", "set_drop_params"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            getattr(eng, name)(0)
-    with pytest.raises(NotImplementedError, match="governor slice"):
-        eng.set_drop_params(0)
+    slot = eng.register_slot(np.array([np.inf, 0.0, np.inf, np.inf], np.float32))
+    assert eng.slot_capacity == 2 and eng.active_slots() == [0, 1]
+    assert eng.set_drop_params(slot, tdr.DropConfig(mode="det", p=1.0)) >= 0
+    arrays, meta = eng.export_state()
+    eng.import_state(arrays, meta)
+    assert eng.deregister_slot(slot) >= 0 and eng.active_slots() == [0]
 
 
 # ------------------------------------------------------------------ hygiene
