@@ -60,6 +60,35 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                throughput, registration walls, the governor's actions, peak
                accounted bytes against B and the ungoverned run, each
                ``shed_slot``'s time and device memory.
+   ``main_serve``  the serving tier at the same size:
+               ``build_serving_session(engine="dense", backend="fused",
+               batch_capacity=32)`` with Prob-Drop provisioned at p = 0 and
+               ``main_fused`` prob's 2**26 Bloom bits a query (the
+               reference scenario's 2**10 saturates at 3.77 M vertices)
+               under a ``CQPServer`` with the reference scenario's
+               ``ServerConfig`` (admission on, chunks of 32, a checkpoint
+               every 2 chunks, 3 restarts) but ``checkpoint_keep=2`` (about
+               5 GB a snapshot; the free disk is checked for 3 before the
+               first write, the directory under ``build/chip_smoke/``
+               removed after).  3 tenants register 8 SSSP queries (3/3/2);
+               the stream goes in round-robin in 8 rounds of 32 updates,
+               every ticket reads after every round; one query is
+               deregistered after round 4 (past ckpt@4, so the control-log
+               replay carries it) and an ``InjectedFault`` fires before
+               chunk 5 (restore ckpt@4, replay chunk 4).  The last reads
+               (covering the whole stream) must be fresh and equal SCRATCH
+               on the final graph bit for bit, and equal a second server
+               run of the same traffic with no fault and no checkpoint
+               directory, with the same per-query accounted bytes; the
+               history must hold exactly the one injected fault; K2 must
+               launch once per sweep iteration (registrations and the
+               replay included; ``engine.maintain`` wrapped to count them).
+               Reports updates/s with and without checkpointing, maintain
+               and read latency, each checkpoint's wall split (``state_dict``,
+               the wait on the previous write, the write) and host bytes,
+               the restore split (load, graph, engine build, import) and the
+               replay, device memory over the phase and across the restore,
+               the epoch-view refresh and the executor hop.
 6. ``parity_fused``  ``ell`` against ``fused`` at V = 2**16 for the four
                semirings x three drop modes: every state leaf and stat.
                ``parity_session``: sessions at V = 2**16 whose pools grow
@@ -69,6 +98,14 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                a drop mode, JOD equal to SCRATCH; the fused det session's
                ``export_state`` imports into a CPU engine that ends
                leaf-equal after one more chunk on both.
+               ``cqp_serve_drill``: ``python -m
+               repro_torch.launch.cqp_serve --json`` at its defaults (V 512,
+               E 2048, 8 queries, 256 updates, chunks of 32) as
+               subprocesses, on ``fused`` and on ``ell`` side by side: a
+               plain run, a drill (a checkpoint every 2 chunks, a fault
+               before chunk 3) and a ``--restore``; per-query bytes and
+               answer digests equal across the three, and the backend's
+               kernel launched.
 7. ``main_lm``  llama3.2-1b serving at its published widths in bf16
                (weights from a seeded generator): ``make_prefill`` on 8 x
                4096 tokens, 64 greedy ``make_decode`` steps, then
@@ -1495,6 +1532,353 @@ def main_session(graph0, stream, sources, none_run: dict, det_run: dict, *, devi
     }
 
 
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a tree of named tuples (an engine state)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, tuple):
+        return sum(tensor_bytes(x) for x in tree)
+    return 0
+
+
+SERVE_FAULT_AT = 5  # the injected fault fires before chunk 5 (ckpt@4 restores, chunk 4 replays)
+SERVE_DEREGISTER_AFTER = 4  # after round 4: past ckpt@4, so the control-log replay carries it
+
+
+def serve_run(graph0, stream, sources, *, device, chunk: int, num_updates: int, ckpt_dir: Path | None,
+              keep: int = 2) -> dict:
+    """One ``CQPServer`` run of the ``main_serve`` traffic; with ``ckpt_dir``
+    it checkpoints every 2 chunks and takes one ``InjectedFault`` before
+    chunk ``SERVE_FAULT_AT``.  Launch counts are zeroed just before the
+    serving session is built and read after the server stops; every sweep's
+    iterations are summed (``engine.maintain`` wrapped), registrations and
+    replays included.  Returns the measurements, the last reads and the
+    final session."""
+    import asyncio
+    import shutil
+
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.core import plan as qplan
+    from repro_torch.core.governor import GovernorConfig
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
+    from repro_torch.runtime.fault import InjectedFault
+    from repro_torch.serving.admission import SLOConfig
+    from repro_torch.serving.metrics import summarize_latency_s
+    from repro_torch.serving.server import CQPServer, ServerConfig, build_serving_session
+    from repro_torch.serving.tenants import TenantSpec
+
+    counters = (K1, K2, K3, K4)
+    # main_fused prob's filter width: the scenario's default 2**10 bits a
+    # query saturates at 3.77 M vertices
+    ladder = GovernorConfig(representation="prob", bloom_bits=1 << 26)
+
+    def factory():
+        return build_serving_session(copy_graph(graph0), ladder=ladder, engine="dense", backend="fused",
+                                     batch_capacity=chunk, store_capacity=16, min_slots=len(sources),
+                                     device=device)
+
+    # the reference scenario's ServerConfig (server.py:889-897), keep 2 not 3
+    cfg = ServerConfig(chunk_updates=chunk, admission=True,
+                       slo=SLOConfig(backlog_high_updates=max(8 * chunk, 256)), drop_ladder=ladder,
+                       checkpoint_every=2, checkpoint_keep=keep, max_restarts=3)
+    fired = []
+
+    def injector(k: int) -> None:
+        if ckpt_dir is not None and k == SERVE_FAULT_AT and not fired:
+            fired.append(k)
+            raise InjectedFault(f"main_serve drill before chunk {k}")
+
+    iters: list[int] = []
+    real_maintain = E.maintain
+
+    def counted_maintain(*args):
+        state, stats = real_maintain(*args)
+        iters.append(int(stats.iters_run))
+        return state, stats
+
+    tenants = {"tenant0": sources[0:3], "tenant1": sources[3:6], "tenant2": sources[6:8]}
+    rounds = num_updates // chunk
+    out: dict = {"rounds": rounds, "chunk": chunk, "queries": len(sources),
+                 "tenants": {t: len(s) for t, s in tenants.items()}}
+    mem: dict = {}
+    inner_s: list[float] = []
+    refresh_s: list[float] = []
+
+    async def traffic():
+        server = CQPServer(factory(), config=cfg, session_factory=factory,
+                           checkpoint_dir=None if ckpt_dir is None else str(ckpt_dir),
+                           fault_injector=injector)
+        apply_sync, refresh, recover, adopt = (server._apply_sync, server._refresh_view,
+                                               server._recover, server._adopt_session)
+
+        def timed_apply(chunk_upd, k):
+            t0 = time.perf_counter()
+            apply_sync(chunk_upd, k)
+            inner_s.append(time.perf_counter() - t0)
+
+        def timed_refresh():
+            t0 = time.perf_counter()
+            refresh()
+            refresh_s.append(time.perf_counter() - t0)
+
+        async def timed_recover(exc, k):
+            torch.cuda.synchronize()
+            mem["peak_before_fault"] = torch.cuda.max_memory_allocated()
+            mem["allocated_at_fault"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            await recover(exc, k)
+            torch.cuda.synchronize()
+            mem["recover_wall_s"] = time.perf_counter() - t0
+            mem["peak_across_restore"] = torch.cuda.max_memory_allocated()
+
+        def timed_adopt(session, cursor):
+            t0 = time.perf_counter()
+            adopt(session, cursor)
+            torch.cuda.synchronize()
+            mem["adopt_replay_s"] = time.perf_counter() - t0
+            mem["restore_timings"] = session.restore_info["timings"] if session.restore_info else None
+
+        server._apply_sync, server._refresh_view = timed_apply, timed_refresh
+        server._recover, server._adopt_session = timed_recover, timed_adopt
+        async with server:
+            t0 = time.perf_counter()
+            tickets = []
+            for i, (tid, srcs) in enumerate(tenants.items()):
+                server.add_tenant(TenantSpec(tenant_id=tid, priority=i + 1))
+                for s in srcs:
+                    tickets.append((tid, await server.register_query(tid, qplan.sssp(s, max_iters=48))))
+            torch.cuda.synchronize()
+            out["register_8_s"] = time.perf_counter() - t0  # the engine's build included
+            out["register_ms"] = [x * 1e3 for x in server.metrics.samples("register")]
+            if ckpt_dir is not None:
+                eng = server.session._impl.impl
+                est = tensor_bytes(eng.state) + sum(a.nbytes for a in server.session.graph.state_dict()[0].values())
+                free = shutil.disk_usage(ckpt_dir).free
+                out["snapshot_bytes_estimate"], out["disk_free_bytes"] = est, free
+                if free < (keep + 1) * est:
+                    raise AssertionError(
+                        f"main_serve needs room for {keep + 1} snapshots of ~{est / 1e9:.2f} GB under "
+                        f"{ckpt_dir}; the disk has {free / 1e9:.2f} GB free"
+                    )
+            round_s = []
+            for r in range(rounds):
+                if r == SERVE_DEREGISTER_AFTER + 1:
+                    tid, ticket = tickets.pop(5)  # tenant1's last query
+                    out["deregistered"] = {"tenant": tid, "ticket": ticket.ticket_id,
+                                           "freed": await server.deregister_query(ticket)}
+                t0 = time.perf_counter()
+                tid = list(tenants)[r % len(tenants)]
+                if not server.submit(tid, stream[r * chunk : (r + 1) * chunk]).admitted:
+                    raise AssertionError(f"round {r}: the submission was not admitted")
+                for tid, ticket in tickets:
+                    await server.read(ticket, timeout_s=1800.0)
+                round_s.append(time.perf_counter() - t0)
+            await server.drain()
+            # the last reads cover the whole stream (each tenant's own reads
+            # wait only for its own writes)
+            reads = {t.ticket_id: await server.read(t, timeout_s=1800.0, require=rounds * chunk)
+                     for _, t in tickets}
+            stats = server.stats()
+        out["round_s"] = round_s
+        return server, stats, tickets, reads
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    if ckpt_dir is not None:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        ckpt_dir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["memory_allocated_at_start"] = torch.cuda.memory_allocated()
+    E.maintain = counted_maintain
+    try:
+        for K in counters:
+            K.reset_launches()  # ---- the main path starts here
+        t0 = time.perf_counter()
+        server, stats, tickets, reads = asyncio.run(traffic())
+        out["wall_s"] = time.perf_counter() - t0
+        launches = {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in counters}  # ---- and ends here
+    finally:
+        E.maintain = real_maintain
+        if ckpt_dir is not None:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    peak_after = torch.cuda.max_memory_allocated()
+    out["max_memory_allocated"] = max(mem.get("peak_before_fault", 0), peak_after)
+    if launches["fused_sweep"] != sum(iters) or launches["ell_spmv"] != 0:
+        raise AssertionError(f"launches {launches} for {sum(iters)} sweep iterations")
+    fresh = [r.fresh for r in reads.values()]
+    if not all(fresh):
+        raise AssertionError(f"stale final reads: {fresh}")
+    timed = [s for r, s in enumerate(out["round_s"]) if r >= 1 and (ckpt_dir is None or r != SERVE_FAULT_AT)]
+    maintain = server.metrics.samples("maintain")
+    hop = [m - i for m, i in zip(maintain, inner_s[-len(maintain):])]
+    out.update(
+        launches=launches,
+        sweep_iters=iters,
+        faults=stats["faults"],
+        updates_per_s=chunk * len(timed) / sum(timed),
+        timed_rounds=[r for r in range(rounds) if r >= 1 and (ckpt_dir is None or r != SERVE_FAULT_AT)],
+        maintain=summarize_latency_s(maintain),
+        read_latency={t: v["read_latency"] for t, v in stats["tenants"].items()},
+        stale_reads=sum(v["stale_reads"] for v in stats["tenants"].values()),
+        epoch_view_refresh=summarize_latency_s(refresh_s),
+        executor_hop=summarize_latency_s(hop),
+        actions=stats["actions"],
+        admission={k: stats["admission"][k] for k in ("epochs", "shedding", "rejected_updates",
+                                                      "rejected_registers", "straggler_sheds")},
+        straggler_events=stats["straggler_events"],
+        phases={k: {"count": v["count"], "p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"], "total_s": v["total_s"]}
+                for k, v in stats["phases"].items()},
+        nbytes_per_query=stats["session"]["nbytes_per_query"],
+        query_qids=stats["session"]["query_qids"],
+    )
+    if ckpt_dir is not None:
+        rec = stats["recovery"]
+        out["recovery"] = {
+            "history": rec["history"],
+            "checkpoints": rec["checkpoints"],
+            "checkpoint_host_bytes": rec["checkpoint_bytes"],
+            "checkpoint_s": rec["checkpoint_s"],
+            "checkpoint_state_dict_s": rec["checkpoint_state_s"],
+            "checkpoint_wait_on_previous_write_s": rec["checkpoint_wait_s"],
+            "checkpoint_write_s": rec["checkpoint_write_s"],
+            "restores": rec["restores"],
+            "replayed_chunks": rec["replayed_chunks"],
+        }
+        out["restore"] = {k: mem.get(k) for k in ("restore_timings", "adopt_replay_s", "recover_wall_s")}
+        out["memory_across_restore"] = {k: mem.get(k) for k in ("allocated_at_fault", "peak_across_restore")}
+    return {"out": out, "server": server, "tickets": tickets, "reads": reads}
+
+
+def main_serve(graph0, stream, sources, *, device, chunk: int, num_updates: int = 256) -> dict:
+    """The serving tier at full size (see the module docstring): the fault
+    run, its last reads against SCRATCH on the final graph, then the same
+    traffic with no fault and no checkpoint directory.  A server and its
+    session hold each other (the straggler policy, the supervisor's
+    restore hook), so each run's device memory is freed by ``gc.collect``,
+    not by ``del`` alone."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.scratch import scratch_like
+    from repro_torch.kernels import ell_spmv as K1
+
+    fault = serve_run(graph0, stream, sources, device=device, chunk=chunk, num_updates=num_updates,
+                      ckpt_dir=OUT_DIR / "serve_ckpt")
+    out = fault["out"]
+    rec = out["recovery"]
+    faults = [h for h in rec["history"] if h.startswith("fault@")]
+    if out["faults"] != 1 or faults != [f"fault@{SERVE_FAULT_AT}:InjectedFault"]:
+        raise AssertionError(f"faults {out['faults']}, history {rec['history']}: only the injected one may fire")
+    server = fault["server"]
+    sess = server.session
+    eng = sess._impl.impl
+    tickets = fault["tickets"]
+    qids = [server.registry.qid_of(t) for _, t in tickets]
+    slots = [sess._handles[q] for q in qids]
+    got = np.stack([fault["reads"][t.ticket_id].values for _, t in tickets])
+    if got.shape != (len(tickets), graph0.num_vertices) or np.isnan(got).any():
+        raise AssertionError(f"bad answers: shape {got.shape}")
+    K1.reset_launches()
+    t0 = time.perf_counter()
+    want = scratch_like(eng.cfg, eng.graph, eng.state.init[slots], device=device).answers()
+    scratch_s = time.perf_counter() - t0
+    np.testing.assert_array_equal(got, want)
+    out["scratch_check"] = {"equal": True, "seconds": scratch_s, "ell_spmv_launches": K1.LAUNCHES}
+    del want, sess, eng, server, fault
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    clean = serve_run(graph0, stream, sources, device=device, chunk=chunk, num_updates=num_updates, ckpt_dir=None)
+    c_out = clean["out"]
+    c_got = np.stack([clean["reads"][t.ticket_id].values for _, t in clean["tickets"]])
+    np.testing.assert_array_equal(got, c_got)
+    if (c_out["nbytes_per_query"], c_out["query_qids"]) != (out["nbytes_per_query"], out["query_qids"]):
+        raise AssertionError(f"per-query bytes {out['nbytes_per_query']} against the fault-free run's "
+                             f"{c_out['nbytes_per_query']} (actions {out['actions']} / {c_out['actions']})")
+    del clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "num_vertices": graph0.num_vertices,
+        "bloom_bits_per_query": 1 << 26,
+        "note": ("GovernorConfig(representation='prob', bloom_bits=2**26), main_fused prob's width (the "
+                 "scenario's 2**10 a query saturates at 3.77 M vertices); checkpoint_keep=2 in place of 3"),
+        "fault_run": out,
+        "clean_run": c_out,
+        "equal_to_scratch": True,
+        "equal_to_fault_free_run": True,
+        "updates_per_s_with_checkpointing": out["updates_per_s"],
+        "updates_per_s_without_checkpointing": c_out["updates_per_s"],
+    }
+
+
+def cqp_serve_drill() -> dict:
+    """``python -m repro_torch.launch.cqp_serve --json`` at its defaults on
+    the card, per backend (``fused``, ``ell``): a plain run, a drill
+    (checkpoint every 2 chunks, a fault before chunk 3) and a ``--restore``
+    from the drill's directory; the three must end with equal per-query
+    bytes and answer digests, and the kernel of the backend must launch.
+    The two backends' chains run side by side, each process to its end."""
+    import os
+    import shutil
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.cqp_serve", "--json"]
+
+    def chain(backend: str) -> dict:
+        d = OUT_DIR / f"drill_{backend}"
+        shutil.rmtree(d, ignore_errors=True)
+        runs = {}
+        try:
+            for name, extra in (("plain", []),
+                                ("drill", ["--checkpoint-dir", str(d), "--checkpoint-every", "2",
+                                           "--inject-fault-at", "3"]),
+                                ("restore", ["--checkpoint-dir", str(d), "--restore"])):
+                t0 = time.perf_counter()
+                proc = subprocess.run(base + ["--backend", backend] + extra, capture_output=True, text=True,
+                                      env=env, cwd=str(ROOT), timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"cqp_serve {backend} {name} exited {proc.returncode}:\n"
+                                         f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+                res = json.loads(proc.stdout.strip().splitlines()[-1])
+                runs[name] = {"wall_s": time.perf_counter() - t0, **{k: res[k] for k in (
+                    "updates_per_sec", "p50_ms", "p99_ms", "nbytes_per_query", "answers_sha256",
+                    "kernel_launches")}}
+                if "recovery" in res:
+                    runs[name]["recovery"] = {k: res["recovery"][k] for k in (
+                        "history", "restarts", "replayed_chunks", "checkpoints", "checkpoint_bytes",
+                        "restore_latency_s")}
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        for name in ("drill", "restore"):
+            for key in ("nbytes_per_query", "answers_sha256"):
+                if runs[name][key] != runs["plain"][key]:
+                    raise AssertionError(f"cqp_serve {backend} {name}: {key} differs from the plain run")
+        if "fault@3:InjectedFault" not in runs["drill"]["recovery"]["history"]:
+            raise AssertionError(f"cqp_serve {backend} drill history {runs['drill']['recovery']['history']}")
+        kernel = "fused_sweep" if backend == "fused" else "ell_spmv"
+        for name in ("plain", "drill"):
+            if runs[name]["kernel_launches"][kernel] == 0:
+                raise AssertionError(f"cqp_serve {backend} {name} launched no {kernel}")
+        return runs
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        fused, ell = ex.map(chain, ("fused", "ell"))
+    return {"args": "--v 512 --e 2048 --queries 8 --updates 256 --batch 32 (the CLI defaults)",
+            "seconds": time.perf_counter() - t0, "fused": fused, "ell": ell, "equal": True}
+
+
 def parity_session(device, num_vertices: int = 1 << 16) -> dict:
     """Sessions at V = 2**16 whose pools grow 1 → 16 one registration at a
     time (8 SSSP queries, a 32-update chunk, 8 more, a second chunk), then a
@@ -2402,12 +2786,16 @@ def main() -> None:
     session_out = main_session(graph0, stream, qsources, runs["none"], runs["det"], device=dev,
                                chunk=chunk)
     emit("main_session", **session_out)
+    serve_out = main_serve(graph0, stream, qsources, device=dev, chunk=chunk, num_updates=num_updates)
+    emit("main_serve", **serve_out)
     del graph0
     torch.cuda.empty_cache()
 
     emit("parity_fused", **parity_fused(dev))
     emit("parity_vdc", **parity_vdc(dev))
     emit("parity_session", **parity_session(dev))
+    drill = cqp_serve_drill()
+    emit("cqp_serve_drill", **drill)
 
     lm_capture, long_capture = FlashCapture(K5.flash_attention), FlashCapture(K5.flash_attention)
     lm_out, params = main_lm(dev, lm_capture)
@@ -2443,9 +2831,13 @@ def main() -> None:
     k3 = real["bloom_query"]
     k4 = vdc_real["diff_lookup"]
     # launches over every main-path run: the ell engine, the three fused
-    # ones, the two VDC ones and the governed session
+    # ones, the two VDC ones, the governed session, the two server runs and
+    # the six cqp_serve processes of the drill
     all_runs = {"ell": main_out, **{f"fused_{m}": r for m, r in runs.items()},
-                **{f"vdc_{b}": r for b, r in vdc_runs.items()}, "session": session_out}
+                **{f"vdc_{b}": r for b, r in vdc_runs.items()}, "session": session_out,
+                "serve": serve_out["fault_run"], "serve_clean": serve_out["clean_run"],
+                **{f"cqp_serve_{b}_{n}": {"launches": r["kernel_launches"]}
+                   for b in ("fused", "ell") for n, r in drill[b].items()}}
     launches = {k: sum(r["launches"][k] for r in all_runs.values())
                 for k in ("ell_spmv", "fused_sweep", "bloom", "diff_lookup")}
     # K5 over the LM runs, each counted from 0: prefill + decode, lm_serve,

@@ -673,8 +673,12 @@ def _maintain_core(
         c = _sweep_body(cfg, g, dirty, dirty_pad, j0, old_dstore, state, c)
     # Det-Drop record loss this sweep
     stats = c.stats._replace(det_overflow=c.drop.det_overflow - state.drop.det_overflow)
+    # a sweep with nothing dirty runs no iteration and changes nothing: its
+    # answers stay the last sweep's (the carry's `cur` is still D_0; the
+    # reference returns that, ROADMAP Queue 3)
+    cur = c.cur if c.i > 1 else state.cur
     new_state = state._replace(
-        dstore=c.dstore, jstore=c.jstore, drop=c.drop, cur=c.cur, repair_counts=c.repair_counts
+        dstore=c.dstore, jstore=c.jstore, drop=c.drop, cur=cur, repair_counts=c.repair_counts
     )
     return new_state, stats
 

@@ -220,3 +220,36 @@ class ScratchEngine:
 
     def nbytes(self) -> int:
         return 0  # no differences maintained
+
+    # ------------------------------------------------------------ durability
+    def export_state(self) -> tuple[dict[str, np.ndarray], dict]:
+        """SCRATCH holds no differences: the checkpoint is the plan rows
+        plus the work counters the governor reads (the reference's meta).
+        Answers are re-derived from the restored graph at import."""
+        ls = self.last_stats
+        meta = {
+            "num_slots": int(self._num_slots),
+            "free_slots": [int(s) for s in self._free],
+            "plans": {str(s): p.to_json() for s, p in self.plans.items()},
+            "last_iters": None if ls is None else int(ls.iters_run),
+            "last_scheduled": None if ls is None else int(ls.scheduled),
+        }
+        return {}, meta
+
+    def import_state(self, arrays: dict, meta: dict) -> None:
+        """Load an :meth:`export_state` snapshot (of either package): the
+        plans rebuild their init rows, the computation reruns on the
+        restored graph, and ``last_stats`` carries the saved counters."""
+        del arrays
+        self.plans = {int(s): qp.QueryPlan.from_json(p) for s, p in meta["plans"].items()}
+        self._num_slots = int(meta["num_slots"])
+        self._free = [int(s) for s in meta["free_slots"]]
+        self._rows = {s: p.build_init(self.cfg.num_vertices) for s, p in self.plans.items()}
+        self._rerun()
+        if meta["last_iters"] is not None:
+            # the pre-crash run's counters, not the import rerun's, so the
+            # governor's recompute signal continues where it left off
+            self.last_stats = _stats_to_host(zeros_stats())._replace(
+                iters_run=np.int32(meta["last_iters"]),
+                scheduled=np.int32(meta["last_scheduled"]),
+            )

@@ -30,19 +30,24 @@ updates, so the engines never know about automata.  With ``budget_bytes``
 a :class:`~repro_torch.core.governor.MemoryGovernor` enforces the byte
 budget after every ingest, register and deregister.
 
-Two pieces wait for their own slices of the port and raise
-:class:`NotImplementedError`: the plan optimizer (``optimize`` other than
-``"none"``, ROADMAP Queue 1 item 5) and ``checkpoint``/``restore``
-(``checkpoint/store.py``, Queue 1 item 3).
+``checkpoint``/``restore`` write and read the reference's checkpoint
+format (``checkpoint/store.py``): a session checkpointed by either package
+restores in the other.  Two pieces wait for their own slices of the port
+and raise :class:`NotImplementedError`: the plan optimizer (``optimize``
+other than ``"none"``, ROADMAP Queue 1 item 5) and the vertex-sharded sweep
+(``mesh=``, item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Protocol, runtime_checkable
 
 import numpy as np
+import torch
 
+from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.core import dropping as dr
 from repro_torch.core import plan as qp
 from repro_torch.core.engine import DiffIFE, EngineConfig, MaintainStats, resolve_device
@@ -56,7 +61,14 @@ from repro_torch.obs.probes import maintain_stats_dict, publish_session_metrics
 ENGINES = ("dense", "host", "scratch")
 
 PLANNER = "the plan optimizer's slice of the port (ROADMAP Queue 1 item 5)"
-DURABILITY = "the durability slice of the port, checkpoint/store.py (ROADMAP Queue 1 item 3)"
+SHARDED = "the sharded slice of the port (ROADMAP Queue 1 item 4)"
+
+# session checkpoint manifest-meta layout version (the reference's)
+CHECKPOINT_FORMAT = 1
+
+# the reference's Pallas-only session knobs: the port writes them into a
+# checkpoint's meta with the reference's defaults and accepts them back
+REFERENCE_KW = {"ell_block_v": 128, "interpret": None}
 
 
 # --------------------------------------------------------------------------- protocol
@@ -279,10 +291,7 @@ class CQPSession:
         if mesh is not None:
             if engine != "dense":
                 raise ValueError("mesh sharding is a dense-engine feature")
-            raise NotImplementedError(
-                "the vertex-sharded sweep (mesh=) is not ported yet: it comes "
-                "with the sharded slice of the port (ROADMAP Queue 1 item 4)"
-            )
+            raise NotImplementedError(f"the vertex-sharded sweep (mesh=) is not ported yet: it comes with {SHARDED}")
         if governor is not None and budget_bytes is None:
             raise ValueError("a GovernorConfig needs budget_bytes to enforce")
         self.device = resolve_device(device)
@@ -326,6 +335,8 @@ class CQPSession:
         self._handles: dict[int, int] = {}  # qid → engine slot
         self._plans: dict[int, qp.QueryPlan] = {}
         self._next_qid = 0
+        self._runtime: dict = {}  # serving-runtime observers (stats()["runtime"])
+        self.restore_info: dict | None = None  # set by CQPSession.restore
         # lifetime counters (stats())
         self.registered_total = 0
         self.deregistered_total = 0
@@ -599,6 +610,22 @@ class CQPSession:
     def _public_qids(self) -> list[int]:
         return sorted(self._plans)
 
+    def handles(self) -> list[QueryHandle]:
+        return [QueryHandle(qid=q, plan=self._plans[q]) for q in self._public_qids()]
+
+    def answers_snapshot(self) -> dict[int, np.ndarray]:
+        """qid → an owned host copy of every registered query's answers.
+
+        The serving tier's epoch view: taken between chunk applies, the
+        copies stay immutable while the next chunk folds in on another
+        thread (and while the engine edits its device state in place), so
+        concurrent readers never observe a half-applied δE chunk.  Every
+        engine's ``answers_row`` returns such a copy (the dense engine's a
+        synchronous device → host copy)."""
+        if self._impl is None:
+            return {}
+        return {qid: self._impl.answers_row(slot) for qid, slot in self._handles.items()}
+
     def nbytes(self) -> int:
         return 0 if self._impl is None else self._impl.nbytes()
 
@@ -727,12 +754,250 @@ class CQPSession:
         ls = self.last_stats
         if isinstance(ls, MaintainStats):
             out["last_maintain"] = maintain_stats_dict(ls)
+        if self._runtime:
+            rt: dict = {}
+            det = self._runtime.get("straggler")
+            if det is not None:
+                rt["straggler"] = {
+                    "observed": det.seen,
+                    "ewma_s": det.ewma,
+                    "events": [dataclasses.asdict(e) for e in det.events],
+                }
+            sup = self._runtime.get("supervisor")
+            if sup is not None:
+                rt["fault"] = sup.metrics()
+            out["runtime"] = rt
         return out
 
+    @property
+    def num_shards(self) -> int:
+        return 1  # the vertex-sharded sweep waits for Queue 1 item 4
+
+    def nbytes_per_device(self) -> list[int]:
+        return [self.nbytes()]
+
     # ------------------------------------------------------------ durability
+    def attach_runtime(self, *, straggler=None, supervisor=None) -> None:
+        """Register serving-runtime observers; they surface in
+        ``stats()["runtime"]`` (straggler events / recovery metrics)."""
+        if straggler is not None:
+            self._runtime["straggler"] = straggler
+        if supervisor is not None:
+            self._runtime["supervisor"] = supervisor
+
+    def _meta_kw(self) -> dict:
+        """The session knobs in the reference's meta layout (its 8 keys, in
+        its order); the device is never written."""
+        kw = {k: self._kw[k] for k in ("mode", "backend", "store_capacity", "jstore_capacity")}
+        kw.update(REFERENCE_KW)
+        kw.update(batch_capacity=self._kw["batch_capacity"], min_slots=self._kw["min_slots"])
+        return kw
+
+    def state_dict(self, *, extra: dict | None = None) -> tuple[dict, dict]:
+        """(arrays, meta): everything needed to rebuild this session.
+
+        Arrays are host copies of the graph(s) and the engine's difference
+        trace (synchronous device → host copies, so no later in-place edit
+        reaches them); meta (JSON-able, rides in the checkpoint manifest)
+        carries plans, handle table, qid cursor, counters, drop/governor
+        state and ``extra`` (the caller's update-log cursor).  Host
+        adjacency, init rows and device views are recomputed at restore.
+        """
+        arrays: dict[str, np.ndarray] = {}
+        g_arrays, g_meta = self.graph.state_dict()
+        arrays.update({f"graph/{k}": v for k, v in g_arrays.items()})
+        c = {
+            "registered_total": self.registered_total,
+            "deregistered_total": self.deregistered_total,
+            "updates_applied": self.updates_applied,
+            "bytes_freed_total": self.bytes_freed_total,
+            "bytes_shed_total": self.bytes_shed_total,
+        }
+        meta: dict = {
+            "format": CHECKPOINT_FORMAT,
+            "engine": self.engine_kind,
+            "kw": self._meta_kw(),
+            "drop_spec": None if self._drop_spec is None else dataclasses.asdict(self._drop_spec),
+            "product_capacity": self._product_capacity,
+            "graph": g_meta,
+            "egraph": None,
+            "family_plan": None,
+            "plans": {str(q): p.to_json() for q, p in self._plans.items()},
+            "handles": {str(q): int(s) for q, s in self._handles.items()},
+            "next_qid": self._next_qid,
+            "counters": c,
+            "engine_state": self._impl is not None,
+            "engine_meta": None,
+            "governor": None,
+            "optimize": "none",
+            "internal": [],
+            "planner": None,
+            "user": extra,
+        }
+        if self._impl is not None:
+            meta["family_plan"] = self._family_plan.to_json()
+            if self._nfa is not None:
+                e_arrays, e_meta = self._egraph.state_dict()
+                arrays.update({f"egraph/{k}": v for k, v in e_arrays.items()})
+                meta["egraph"] = e_meta
+            impl = self._impl.impl if isinstance(self._impl, DenseEngine) else self._impl
+            en_arrays, en_meta = impl.export_state()
+            arrays.update({f"engine/{k}": v for k, v in en_arrays.items()})
+            meta["engine_meta"] = en_meta
+        if self._governor is not None:
+            meta["governor"] = self._governor.state_dict()
+        return arrays, meta
+
     def checkpoint(self, directory: str, *, step: int | None = None, extra: dict | None = None) -> str:
-        raise NotImplementedError(f"CQPSession.checkpoint is not ported yet: it comes with {DURABILITY}")
+        """Synchronous atomic snapshot into ``directory``; returns the step
+        dir.  ``step`` defaults to the cumulative ingested-update count; pass
+        ``extra`` for the serving loop's log cursor.  (The recovery
+        supervisor drives the async keep-N path through
+        :class:`~repro_torch.checkpoint.CheckpointManager` instead.)"""
+        arrays, meta = self.state_dict(extra=extra)
+        step = self.updates_applied if step is None else int(step)
+        return ckpt_store.save_checkpoint(directory, step, arrays, meta=meta)
 
     @classmethod
-    def restore(cls, directory: str, *, step: int | None = None, mesh=None) -> "CQPSession":
-        raise NotImplementedError(f"CQPSession.restore is not ported yet: it comes with {DURABILITY}")
+    def restore(cls, directory: str, *, step: int | None = None, mesh=None, device=None) -> "CQPSession":
+        """Rebuild a session from the latest (or ``step``'s) checkpoint, of
+        this package or the reference, on ``device`` (``None``: the CUDA
+        device).
+
+        Replaying the same update-log suffix then yields answers
+        bit-identical to an uninterrupted run (min-family semirings).
+        ``session.restore_info`` carries the restored step, the saver's
+        ``extra`` cursor and ``timings``: seconds spent loading the
+        checkpoint, rebuilding the graph(s), building the engine (its device
+        graph and, on ``ell``/``fused``, the host ELL view) and importing the
+        saved state.  ``mesh`` (a restore onto a sharded sweep) raises
+        :class:`NotImplementedError`.
+        """
+        if mesh is not None:
+            raise NotImplementedError(f"restoring onto a mesh is not ported yet: it comes with {SHARDED}")
+        device = resolve_device(device)
+        t0 = time.perf_counter()
+        arrays, manifest, step = ckpt_store.load_checkpoint(directory, step)
+        timings = {"load_s": time.perf_counter() - t0}
+        meta = manifest.get("meta")
+        if meta is None:
+            raise ValueError(
+                f"checkpoint in {directory} carries no session meta — was it "
+                "written by CQPSession.checkpoint / the recovery supervisor?"
+            )
+        sess = cls._from_state(arrays, meta, device=device, timings=timings)
+        sess.restore_info = {"step": step, "extra": meta.get("user"), "timings": timings}
+        return sess
+
+    @classmethod
+    def _from_state(cls, arrays: dict, meta: dict, *, mesh=None, device=None,
+                    timings: dict | None = None) -> "CQPSession":
+        """Rebuild a session from ``state_dict`` output (of either package);
+        ``timings``, when given, receives the phase seconds (see
+        :meth:`restore`)."""
+        if int(meta.get("format", 0)) != CHECKPOINT_FORMAT:
+            raise ValueError(f"unsupported session checkpoint format {meta.get('format')!r}")
+        if mesh is not None:
+            raise NotImplementedError(f"restoring onto a mesh is not ported yet: it comes with {SHARDED}")
+        if meta.get("planner") is not None or meta.get("internal"):
+            raise NotImplementedError(
+                f"this checkpoint holds plan-optimizer state, which is not ported yet: it comes with {PLANNER}"
+            )
+        timings = {} if timings is None else timings
+        device = resolve_device(device)
+
+        def clock() -> float:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            return time.perf_counter()
+
+        def sub(prefix: str) -> dict:
+            return {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+
+        kw = dict(meta["kw"])
+        for key, default in REFERENCE_KW.items():
+            val = kw.pop(key, default)
+            ok = (isinstance(val, int) and not isinstance(val, bool) and val >= 1) if key == "ell_block_v" \
+                else val is None or isinstance(val, bool)
+            if not ok:
+                raise ValueError(f"checkpoint meta kw {key}={val!r} is not a valid reference setting")
+        t = clock()
+        graph = DynamicGraph.from_state(meta["graph"], sub("graph/"))
+        drop = None if meta["drop_spec"] is None else dr.DropConfig(**meta["drop_spec"])
+        gov = meta["governor"]
+        gcfg = None
+        if gov is not None:
+            cfg_d = dict(gov["cfg"])
+            cfg_d["ladder_p"] = tuple(cfg_d["ladder_p"])
+            gcfg = GovernorConfig(**cfg_d)
+        sess = cls(
+            graph,
+            engine=meta["engine"],
+            drop=drop,
+            product_capacity=meta["product_capacity"],
+            budget_bytes=None if gov is None else int(gov["budget_bytes"]),
+            governor=gcfg,
+            optimize=meta.get("optimize", "none"),
+            device=device,
+            **kw,
+        )
+        sess._plans = {int(q): qp.QueryPlan.from_json(p) for q, p in meta["plans"].items()}
+        sess._handles = {int(q): int(s) for q, s in meta["handles"].items()}
+        sess._next_qid = int(meta["next_qid"])
+        for name, val in meta["counters"].items():
+            setattr(sess, name, int(val))
+        if meta["engine_state"]:
+            first = qp.QueryPlan.from_json(meta["family_plan"])
+            sess._family_plan = first
+            sess._family = first.family_key()
+            sess._nfa = first.nfa
+            if meta["egraph"] is not None:
+                sess._egraph = DynamicGraph.from_state(meta["egraph"], sub("egraph/"))
+            else:
+                sess._egraph = graph
+            timings["graph_s"] = clock() - t
+            em = meta["engine_meta"]
+            en_arrays = sub("engine/")
+            t = clock()
+            if sess.engine_kind == "dense":
+                if sess._drop_spec is None:
+                    sess._drop_spec = first.drop
+                ekw = dict(sess._kw)
+                # the saved pool size is a power of two, so min_slots =
+                # slot_capacity rebuilds the exact pool (and with it the saved
+                # free list's meaning); an all-inactive pool skips the
+                # constructor sweep, so import lands on untouched state
+                ekw["min_slots"] = int(em["slot_capacity"])
+                ekw["mode"] = em["mode"]
+                eng = DenseEngine(sess._egraph, first, drop_spec=sess._drop_spec, device=device, **ekw)
+                timings["engine_s"] = clock() - t
+                t = clock()
+                eng.impl.import_state(en_arrays, em)
+                sess._impl = eng
+            elif sess.engine_kind == "host":
+                imp = SparseDiffIFE(sess._egraph, max_iters=int(first.max_iters))
+                timings["engine_s"] = clock() - t
+                t = clock()
+                imp.import_state(en_arrays, em)
+                sess._impl = imp
+            else:
+                cfg = engine_config_for(
+                    first,
+                    num_queries=1,
+                    num_vertices=sess._egraph.num_vertices,
+                    backend=sess._kw["backend"],
+                )
+                imp = ScratchEngine(cfg, sess._egraph, device=device)
+                timings["engine_s"] = clock() - t
+                t = clock()
+                imp.import_state(en_arrays, em)
+                sess._impl = imp
+            timings["import_s"] = clock() - t
+        elif sess._handles:
+            # engine handles exist only if an engine did: corrupt meta
+            raise ValueError("checkpoint has live plans but no engine state")
+        else:
+            timings["graph_s"] = clock() - t
+        if gov is not None:
+            sess._governor.load_state(gov)
+        return sess

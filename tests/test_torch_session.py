@@ -208,10 +208,11 @@ def test_failed_register_batch_leaves_the_session_untouched():
     assert s3.answers(h3).shape == (V,)
 
 
-def test_validation_errors_and_unported_pieces():
-    """The reference's validation errors; the optimizer, checkpointing and
-    the mesh raise NotImplementedError naming their ROADMAP items; the
-    default device is the GPU."""
+def test_validation_errors_and_unported_pieces(tmp_path):
+    """The reference's validation errors; the optimizer and the mesh (also
+    on restore) raise NotImplementedError naming their ROADMAP items; a
+    restore from an empty directory finds nothing; the default device is
+    the GPU."""
     initial, _ = random_workload(14, v=V, e=48, num_batches=1)
     s = TSession(TGraph(V, initial, capacity=256), engine="dense", device=CPU)
     h = s.register(tplan.sssp(0, max_iters=MAX_ITERS))
@@ -241,10 +242,11 @@ def test_validation_errors_and_unported_pieces():
         TSession(graph, engine="dense", optimize="auto", device=CPU)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         s.register(tplan.sssp(1, max_iters=MAX_ITERS), optimize="always")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        s.checkpoint("unused")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TSession.restore("unused")
+    with pytest.raises(FileNotFoundError):
+        TSession.restore(str(tmp_path / "none"), device=CPU)
+    s.checkpoint(str(tmp_path / "ckpt"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        TSession.restore(str(tmp_path / "ckpt"), mesh=object(), device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TSession(graph, engine="dense")
