@@ -22,7 +22,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                version takes the ELL kernel's expand, which is the same
                device code), and at ``RAGGED`` in place and out of place,
                on aligned copies and on misaligned views; ``bloom_query``
-               bit-equal;
+               bit-equal at N tails (0, 1, 3, 5, 4097), M a power of two
+               or not, k from 1 to 8 and Q = 9, on aligned copies and on
+               misaligned views;
                ``diff_lookup`` bit-equal.  ``kernel_small_flash``: K5
                (``flash_attention``) against its plain version at head
                dims 16, 64 and 128 over causal and not, GQA/MQA, ragged
@@ -133,7 +135,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                out-of-place design);
                ``bloom_query`` on the prob run's filter, packed, also
                held against ``core.bloom.query`` for every (v, i) probe of
-               one query; ``diff_lookup`` on the J and Det stores;
+               one query, then timed on two key sets (every vertex at
+               i = 2; seeded random (v, i <= max_iter)), each bit-equal to
+               the plain version and ``core.bloom.query``, beside the
+               index-only yardstick (``torch.take`` of the words its early
+               exit reaches) and its time on an L1-sized filter row;
+               ``diff_lookup`` on the J and Det stores;
                ``flash_attention`` on the first prefill and decode call of
                ``main_lm`` and ``main_lm_long``, whose operands are kept by
                running those two calls again after the timed run, and on
@@ -150,14 +157,20 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 9. ``other_semirings``  K-hop (k=6) and PageRank (10 rounds) at V = 2**16
                with short batched streams, against SCRATCH.
 
-Then the ``kernels`` line, the card's ``nvidia-smi`` name and power limit,
-and last ``{"ok": true, "device": {...}}``.  There is no CPU path.
+Every phase line carries ``phase_s``, the wall seconds since the line
+before it, so the lines split the run's wall: the real-size kernel timings
+of ``kernel_real`` fall in the line of the run whose state they use (K3's,
+on a host copy of the prob run's filter, in ``kernel_real``); and
+``gc_s`` / ``gc_full``, the part of it in Python's collector.  Then
+the ``kernels`` line, the card's ``nvidia-smi`` name and power limit, and
+last ``{"ok": true, "device": {...}}``.  There is no CPU path.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import statistics
@@ -180,8 +193,32 @@ F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 SEED = 0
 
 
+_last_line = time.perf_counter()  # when the previous phase line was printed
+# Python's collector since the previous line: seconds, and full (generation
+# 2) collections, which walk every tracked object (the host graphs hold
+# tens of millions)
+_gc = {"s": 0.0, "full": 0, "t0": 0.0}
+
+
+def _time_gc(step: str, info: dict) -> None:
+    if step == "start":
+        _gc["t0"] = time.perf_counter()
+    else:
+        _gc["s"] += time.perf_counter() - _gc["t0"]
+        _gc["full"] += info["generation"] == 2
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """Print one phase's JSON line, with ``phase_s``: the wall seconds since
+    the previous line (the first: since the script started), so the lines
+    split the run's wall between them; ``gc_s`` and ``gc_full`` of it went
+    to Python's collector."""
+    global _last_line
+    now = time.perf_counter()
+    print(json.dumps({"phase": phase, **fields, "phase_s": now - _last_line, "gc_s": _gc["s"],
+                      "gc_full": _gc["full"]}), flush=True)
+    _last_line = now
+    _gc.update(s=0.0, full=0)
 
 
 # --------------------------------------------------------------------------- data
@@ -579,19 +616,27 @@ def kernel_small(device) -> dict:
             err4 = max(err4, same_lookup(K4.diff_lookup(iters, vals, q_arg), K4.diff_lookup_ref(iters, vals, q_arg)))
             cases4 += 1
 
+    # K3: N tails (0, 1, 3, 5, 4097 keys: rows that start on every offset
+    # mod 4), M a power of two or not (1184 = 32 x 37; 32 x 37 x 101), k from
+    # 1 to 8, Q = 9, fuller rows for deeper probes; each case on aligned
+    # copies and with every operand off 16 bytes (the kernel's scalar path)
     cases3, err3 = 0, 0.0
-    for q, n, mbits, k in [(1, 64, 1 << 10, 2), (3, 500, 1 << 12, 4), (2, 1024, 1 << 14, 6)]:
+    for q, n, mbits, k in [(1, 64, 1 << 10, 2), (3, 500, 1 << 12, 4), (2, 1024, 1 << 14, 6), (3, 0, 1 << 10, 4),
+                           (3, 1, 1 << 10, 1), (3, 3, 1184, 8), (9, 5, 1 << 10, 8), (9, 4097, 1184, 4),
+                           (9, 4097, 32 * 37 * 101, 1), (8, 4097, 1 << 12, 8)]:
         t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
-        words = K3.pack_bits(t(rng.random((q, mbits)) < 0.4))
+        words = K3.pack_bits(t(rng.random((q, mbits)) < np.linspace(0.3, 0.9, q)[:, None]))
         v = t(rng.integers(0, 2**31 - 1, size=(q, n)).astype(np.int32))
         it = t(rng.integers(0, 64, size=(q, n)).astype(np.int32))
         salt = torch.arange(q, dtype=torch.int32, device=device)
-        got = K3.bloom_query(words, v, it, salt, num_hashes=k)
         want = K3.bloom_query_ref(words, v, it, salt, num_hashes=k)
-        err3 = max(err3, max_abs_diff(got, want))
-        if not torch.equal(got, want):
-            raise AssertionError("bloom_query differs from its plain version")
-        cases3 += 1
+        for move in (torch.clone, misaligned):
+            got = K3.bloom_query(*map(move, (words, v, it, salt)), num_hashes=k)
+            err3 = max(err3, max_abs_diff(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"bloom_query differs from its plain version at Q, N, M, k = "
+                                     f"{(q, n, mbits, k)} ({move.__name__})")
+            cases3 += 1
     torch.cuda.synchronize()
     return {
         "ell_spmv": {"max_abs_err": err1, "semirings": list(K1.SEMIRINGS)},
@@ -1089,55 +1134,125 @@ def fused_real(capture: Capture) -> dict:
     return out
 
 
-def bloom_real(eng) -> dict:
-    """K3 on the prob run's filter, packed: every (v, i <= max_iter) probe
-    of query 0 against ``core.bloom.query``, then timed over all queries."""
+L1_ROW_BITS = 1 << 20  # a 128 KB filter row: the SM's L1 holds it
+
+
+def reached_words(words, v, i, salt, num_hashes: int):
+    """Flat indices into ``words`` [Q, W] of every probe that K3's early exit
+    reaches (a key's probes up to its first clear bit), key by key."""
+    import torch
+
+    from repro_torch.core.bloom import M32, hash_key
+
+    q, w = words.shape
+    h1, h2 = hash_key(v, i, salt[:, None])
+    j = torch.arange(num_hashes, dtype=torch.int64, device=words.device)
+    probes = ((h1[..., None] + ((j * h2[..., None]) & M32)) & M32) % (w * 32)
+    flat = (probes >> 5) + torch.arange(q, device=words.device)[:, None, None] * w
+    bit = (torch.take(words, flat).to(torch.int64) >> (probes & 31)) & 1
+    reach = torch.cat([torch.ones_like(bit[..., :1]), bit[..., :-1].cumprod(-1)], -1).bool()
+    return flat[reach]
+
+
+def bloom_real(bits, num_hashes: int, max_iter: int, num_vertices: int, device) -> dict:
+    """K3 on the prob run's filter (``bits`` kept on the host, so that its
+    timing runs after the main-path phases and leaves their device memory
+    as it was), packed: every (v, i <= max_iter) probe of query 0 against
+    ``core.bloom.query``; then, over all queries, two
+    timed key sets, each bit-equal to the plain version and to
+    ``core.bloom.query``: every vertex at i = 2 (the set of earlier runs)
+    and seeded random (v, i <= max_iter) keys.  Beside each set's time: the
+    index-only yardstick, ``torch.take`` of the filter words at exactly the
+    probe addresses the early exit reaches (computed outside the timed
+    window), and K3 on the same keys against a random filter of
+    ``L1_ROW_BITS`` a row at the run's fill, whose probes L1 serves; each
+    also as ``device_ms`` (calls queued back to back, no host time)."""
     import torch
 
     from repro_torch.core import bloom as bloom_lib
     from repro_torch.kernels import bloom as K3
 
-    flt = eng.state.drop.flt
+    t0 = time.perf_counter()
+    flt = bloom_lib.BloomFilter(bits.to(device), num_hashes)
     q, m = flt.bits.shape
-    v = eng.cfg.num_vertices
+    v = num_vertices
+    k = num_hashes
     words = K3.pack_bits(flt.bits)
-    max_iter = int(eng.state.drop.max_iter)
     dev = flt.bits.device
     v_ids = torch.arange(v, dtype=torch.int32, device=dev)[None, :]
-    row0 = bloom_lib.BloomFilter(flt.bits[:1], flt.num_hashes)
+    row0 = bloom_lib.BloomFilter(flt.bits[:1], k)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     hits, lib_err = 0, 0.0
     for i in range(max_iter + 1):
-        got = K3.bloom_query(words[:1], v_ids, torch.full_like(v_ids, i), zero, num_hashes=flt.num_hashes)
+        got = K3.bloom_query(words[:1], v_ids, torch.full_like(v_ids, i), zero, num_hashes=k)
         want = bloom_lib.query(row0, v_ids, i, salt=0)
         lib_err = max(lib_err, max_abs_diff(got, want))
         if not torch.equal(got, want):
             raise AssertionError(f"bloom_query differs from core.bloom.query at i={i}")
         hits += int(got.sum())
-    keys_v = v_ids.expand(q, v).contiguous()
-    keys_i = torch.full((q, v), 2, dtype=torch.int32, device=dev)
+    fill = [float(x) for x in bloom_lib.fill_fraction(flt)]
     salt = torch.arange(q, dtype=torch.int32, device=dev)
-    call = lambda: K3.bloom_query(words, keys_v, keys_i, salt, num_hashes=flt.num_hashes)  # noqa: E731
-    plain = lambda: K3.bloom_query_ref(words, keys_v, keys_i, salt, num_hashes=flt.num_hashes)  # noqa: E731
-    got, want = call(), plain()
-    err = max_abs_diff(got, want)
-    if not torch.equal(got, want):
-        raise AssertionError("bloom_query differs from its plain version at the real size")
-    del got, want
-    nbytes = q * v * 9 + q * 4 + min(q * m // 8, q * v * flt.num_hashes * 4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    l1_words = K3.pack_bits(torch.rand((q, L1_ROW_BITS), generator=gen, device=dev) < statistics.mean(fill))
+    key_sets = {
+        "i2": (v_ids.expand(q, v).contiguous(), torch.full((q, v), 2, dtype=torch.int32, device=dev)),
+        "random": (torch.randint(0, v, (q, v), generator=gen, device=dev, dtype=torch.int32),
+                   torch.randint(0, max_iter + 1, (q, v), generator=gen, device=dev, dtype=torch.int32)),
+    }
+    sets = {}
+    for name, (kv, ki) in key_sets.items():
+        call = lambda: K3.bloom_query(words, kv, ki, salt, num_hashes=k)  # noqa: E731
+        plain = lambda: K3.bloom_query_ref(words, kv, ki, salt, num_hashes=k)  # noqa: E731
+        got, want = call(), plain()
+        err = max_abs_diff(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"bloom_query differs from its plain version at the real size ({name} keys)")
+        want = bloom_lib.query(flt, kv, ki, salt[:, None])
+        core_err = max_abs_diff(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"bloom_query differs from core.bloom.query at the real size ({name} keys)")
+        positives = int(got.sum())
+        del got, want
+        idx = reached_words(words, kv, ki, salt, k)
+        probes = idx.numel()
+        take = lambda: torch.take(words, idx)  # noqa: E731
+        l1_call = lambda: K3.bloom_query(l1_words, kv, ki, salt, num_hashes=k)  # noqa: E731
+        # each key's v and i read and its answer written once; the filter
+        # words at most once, and no more of them than the probes reach
+        nbytes = q * v * 9 + q * 4 + min(q * m // 8, probes * 4)
+        sets[name] = {
+            "max_abs_err": err,
+            "core_query_max_abs_err": core_err,
+            "positives": positives,
+            "probes_reached": probes,
+            "probes_per_key": probes / (q * v),
+            "ms": time_ms(call),
+            "device_ms": device_ms_per_call(call),
+            "plain_ms": time_ms(plain, reps=5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "index_only_take_ms": time_ms(take),
+            "index_only_take_device_ms": device_ms_per_call(take),
+            # the yardstick's own bytes: an int64 index in, an int32 word out a probe
+            "index_only_take_bound_ms": (probes * 12 + min(q * m // 8, probes * 4)) / HBM_BYTES_PER_S * 1e3,
+            "l1_row_ms": time_ms(l1_call),
+            "l1_row_device_ms": device_ms_per_call(l1_call),
+        }
+        del idx
+    i2 = sets["i2"]
     return {
         "num_bits": m,
-        "num_hashes": flt.num_hashes,
-        "fill_fraction": [float(x) for x in bloom_lib.fill_fraction(flt)],
+        "num_hashes": k,
+        "fill_fraction": fill,
         "checked_probes_query0": (max_iter + 1) * v,
         "positives_query0": hits,
-        "core_query_max_abs_err": lib_err,
-        "max_abs_err": err,
-        "ms": time_ms(call),
-        "plain_ms": time_ms(plain, reps=5),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        "core_query_max_abs_err": max(lib_err, *(r["core_query_max_abs_err"] for r in sets.values())),
+        "max_abs_err": max(r["max_abs_err"] for r in sets.values()),
+        **{x: i2[x] for x in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "index_only_take_ms")},
         "library_ms": None,
+        "key_sets": sets,
+        "l1_row_bits": L1_ROW_BITS,
+        "seconds": time.perf_counter() - t0,
     }
 
 
@@ -1220,8 +1335,11 @@ def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
             out["equals_ell_engine"] = True
             del got  # else the next run starts with this state on the card
         if mode == "prob":
-            real["bloom_query"] = bloom_real(eng)
-            out["bloom_fill_fraction"] = real["bloom_query"]["fill_fraction"]
+            flt = eng.state.drop.flt  # K3 is timed on it after the LM phases
+            bits = flt.bits.cpu()
+            real["bloom_filter"] = (bits, flt.num_hashes, int(eng.state.drop.max_iter), eng.cfg.num_vertices)
+            out["bloom_fill_fraction"] = [float(x) for x in bits.sum(dim=-1) / bits.shape[-1]]
+            del flt, bits
         if mode == "det":
             real["diff_lookup_det"] = det_lookup_real(eng)
         if mode != "none":
@@ -2728,6 +2846,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; it has no CPU path")
+    gc.callbacks.append(_time_gc)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import bloom as K3
@@ -2816,6 +2935,7 @@ def main() -> None:
     del lm_capture, long_capture, f32_capture
     torch.cuda.empty_cache()
     flash.update(flash_rows(dev))
+    real["bloom_query"] = bloom_real(*real.pop("bloom_filter"), dev)
 
     emit("kernel_real", q=q, v=v, d=d, ell_spmv=real1,
          fused_sweep={**{m: real[m] for m in ("none", "det", "prob")},
@@ -2894,7 +3014,11 @@ def main() -> None:
             "plain_ms": k3["plain_ms"],
             "bound_ms": k3["bound_ms"],
             "bound_by": "bytes",
-            "library_ms": None,
+            "device_ms": k3["device_ms"],  # calls queued back to back: no host time between them
+            "library_ms": None,  # no single call computes it; torch.take (index only) is a note
+            "index_only_take_ms": k3["index_only_take_ms"],
+            "key_set": "every vertex at i = 2",
+            "by_key_set": k3["key_sets"],
         },
         {
             "name": "diff_lookup",

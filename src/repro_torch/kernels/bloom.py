@@ -8,8 +8,12 @@ Words are uint32 bit patterns held in int32 (bit ``b`` of word ``w`` is
 filter bit ``32 w + b``).
 
 The CUDA kernel is ``csrc/bloom.cu``; its hash is ``csrc/bloom_hash.cuh``,
-which K2's prob stage probes with too.  No engine path calls this kernel, as
-in the reference: the fused sweep probes the bool filter inside K2.
+which K2's prob stage probes with too.  It takes a group of keys a thread
+and overlaps their probes, streams the keys as 16-byte vectors, and reduces
+a probe modulo M without a division: a mask for a power-of-two M, else the
+exact reciprocal :func:`fastmod_constant` computes for the call.  No engine
+path calls this kernel, as in the reference: the fused sweep probes the
+bool filter inside K2.
 
 :func:`bloom_query` launches the kernel for CUDA tensors and runs
 :func:`bloom_query_ref`, the plain PyTorch version, for CPU tensors.
@@ -46,6 +50,13 @@ def pack_bits(bits: Tensor) -> Tensor:
     b = bits.reshape(*lead, m // 32, 32).to(torch.int64)
     shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
     return (b << shifts).sum(dim=-1).to(torch.int32)
+
+
+def fastmod_constant(num_bits: int) -> int:
+    """The kernel's reciprocal of ``num_bits`` (Lemire, Kaser and Kurz, 2019):
+    ``c = floor((2**64 - 1) / num_bits) + 1``, with which ``x % num_bits ==
+    (((c * x) % 2**64) * num_bits) >> 64`` for every 32-bit ``x``."""
+    return (2**64 - 1) // num_bits + 1
 
 
 def bloom_query_ref(words: Tensor, v: Tensor, i: Tensor, salt: Tensor, *, num_hashes: int) -> Tensor:
@@ -92,12 +103,14 @@ def bloom_query(words: Tensor, v: Tensor, i: Tensor, salt: Tensor, *, num_hashes
         raise ValueError("bloom_query takes fewer than 65536 filter rows")
     words, v, i, salt = (t.contiguous() for t in (words, v, i, salt))
     out = torch.empty((q, n), dtype=torch.bool, device=dev)
+    if out.numel() == 0:  # no key: nothing to launch
+        return out
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bloom_query_launch(
             words.data_ptr(), v.data_ptr(), i.data_ptr(), salt.data_ptr(), out.data_ptr(),
-            q, n, words.shape[1], int(num_hashes), stream,
+            q, n, words.shape[1], int(num_hashes), fastmod_constant(words.shape[1] * 32), stream,
         )
     if err != 0:
         raise RuntimeError(f"bloom_query launch failed: cudaError {err}")
@@ -110,6 +123,6 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.bloom_query_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
