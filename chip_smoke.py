@@ -62,6 +62,24 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                throughput, registration walls, the governor's actions, peak
                accounted bytes against B and the ungoverned run, each
                ``shed_slot``'s time and device memory.
+   ``main_vdc``  (one line per run) the same graph, sources and stream with
+               ``mode="vdc"`` (S_J = 8) on ``coo`` and ``fused``: answers
+               equal SCRATCH (``scratch_mismatches`` 0), the two runs
+               leaf-equal, ``diff_lookup`` twice per sweep iteration.
+   ``main_landmark``  the plan optimizer at the same size: a copy of the
+               graph under ``CQPSession(engine="dense", backend="fused",
+               optimize="always")`` with the ``LandmarkRule`` default L = 4;
+               8 SPSP plans from the main path's sources to ``(s + V // 2)
+               % V`` (``cqp_serve --query spsp``), ``max_iters=48``; the
+               stream's first 128 updates in 4 chunks of 32, every target
+               read after every chunk.  Every target equals SCRATCH (8
+               un-rewritten SSSP runs) bit for bit.  Reports the index
+               build (``transpose_graph``, the twin over Gᵀ, the
+               registration sweeps), per chunk the wall, the host engine's
+               and the twin's maintenance and the refresh (triangle bounds
+               and pruned Bellman-Ford), pruned iterations and the work cut
+               ``1 − work / (iters × Q × V)``, the index's bytes, peak
+               device memory and K2's launches (the forward index rows).
    ``main_serve``  the serving tier at the same size:
                ``build_serving_session(engine="dense", backend="fused",
                batch_capacity=32)`` with Prob-Drop provisioned at p = 0 and
@@ -107,7 +125,17 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                plain run, a drill (a checkpoint every 2 chunks, a fault
                before chunk 3) and a ``--restore``; per-query bytes and
                answer digests equal across the three, and the backend's
-               kernel launched.
+               kernel launched; beside them ``--query spsp --optimize
+               always`` on each backend, plain and drill, whose target
+               answers equal a ``--engine scratch`` run's (four chains side
+               by side).
+               ``parity_planner``: ``CQPSession(optimize="always")`` at V =
+               2**16 on ``fused``, the card against the port's CPU run on
+               the same inputs (pruned fields, ``iters``, ``work`` and the
+               planner's snapshot equal); one governed leg at a starved
+               budget (the index sheds, answers stay exact, the budget is
+               raised, the index re-materialises); one checkpoint →
+               restore → replay with the index live.
 7. ``main_lm``  llama3.2-1b serving at its published widths in bf16
                (weights from a seeded generator): ``make_prefill`` on 8 x
                4096 tokens, 64 greedy ``make_decode`` steps, then
@@ -798,17 +826,13 @@ class Capture:
         return self.fn(i, *args, **kw)
 
 
-SCRATCH_MISMATCH_NOTE = ("the reference's VDC differs from SCRATCH under deletions; the port "
-                         "reproduces it bit for bit (ROADMAP Queue 3, 'VDC is not exact under "
-                         "deletions')")
-
-
 def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int, chunk: int,
                counters, drop=None, mode: str = "jod", profile_path: Path | None = None,
                capture: Capture | None = None):
     """Drive ``queries.sssp`` on ``graph`` (mutated) through
-    ``apply_updates_batched`` and hold the answers against SCRATCH (JOD:
-    equal; VDC: mismatches counted, see :data:`SCRATCH_MISMATCH_NOTE`).
+    ``apply_updates_batched`` and hold the answers against SCRATCH: equal
+    bit for bit, JOD and VDC alike (VDC's answers that differ are counted
+    before the check fails).
 
     The launch counts of the kernel modules in ``counters`` are zeroed just
     before the engine is built and read just after the timed chunks; one
@@ -854,17 +878,14 @@ def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int
     if not all(ans[q, s] == 0.0 for q, s in enumerate(sources)):
         raise AssertionError("a source is not at distance 0")
     want = scratch_like(eng.cfg, eng.graph, eng.state.init, device=device).answers()
-    if mode == "jod":
-        np.testing.assert_array_equal(ans, want)
-        out["equals_scratch"] = True
-    else:
-        bad = np.argwhere(ans != want)
+    bad = np.argwhere(ans != want)
+    if mode == "vdc":
         out["scratch_mismatches"] = int(bad.shape[0])
-        out["scratch_mismatch_first"] = [
-            {"q": int(q), "v": int(v), "engine": float(ans[q, v]), "scratch": float(want[q, v])}
-            for q, v in bad[:5]
-        ]
-        out["scratch_mismatch_note"] = SCRATCH_MISMATCH_NOTE
+    if bad.shape[0]:
+        first = [{"q": int(q), "v": int(v), "engine": float(ans[q, v]), "scratch": float(want[q, v])}
+                 for q, v in bad[:5]]
+        raise AssertionError(f"{mode}/{backend}: {bad.shape[0]} answers differ from SCRATCH, first {first}")
+    out["equals_scratch"] = True
     return out, eng
 
 
@@ -1940,28 +1961,279 @@ def main_serve(graph0, stream, sources, *, device, chunk: int, num_updates: int 
     }
 
 
+class Clock:
+    """Wall seconds of the wrapped callables, a device sync on both sides
+    (the work they queue is inside their time), summed per name."""
+
+    def __init__(self):
+        self.s: dict[str, float] = {}
+        self.wrapped: list[tuple] = []
+
+    def wrap(self, obj, attr: str, name: str) -> None:
+        import torch
+
+        fn = getattr(obj, attr)
+        self.wrapped.append((obj, attr, obj.__dict__.get(attr)))
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+
+        setattr(obj, attr, timed)
+
+    def take(self) -> dict:
+        out, self.s = self.s, {}
+        return out
+
+    def unwrap(self) -> None:
+        for obj, attr, fn in reversed(self.wrapped):
+            if fn is None:
+                delattr(obj, attr)  # an instance's wrapper over its class's method
+            else:
+                setattr(obj, attr, fn)
+        self.wrapped = []
+
+
+def landmark_targets(sess, handles) -> list[float]:
+    """Every SPSP target through ``CQPSession.aggregate`` (the first read
+    after a chunk runs the lazy refresh)."""
+    return [sess.aggregate(h)["value"] for h in handles]
+
+
+def main_landmark(graph0, stream, sources, *, device, chunk: int, num_updates: int = 128) -> dict:
+    """The plan optimizer at full size: 8 SPSP plans through
+    ``CQPSession(engine="dense", backend="fused", optimize="always")`` on a
+    copy of the main graph, ``num_updates`` of the main stream in chunks of
+    ``chunk``, every target read after every chunk; the targets at the end
+    must equal SCRATCH bit for bit and K2 must launch (the forward index
+    rows).  The launch counts are zeroed just before the registration and
+    read just after the last read."""
+    import torch
+
+    from repro_torch.core import landmark as lm
+    from repro_torch.core import plan as tplan
+    from repro_torch.core import semiring as tsr
+    from repro_torch.core.scratch import scratch_like
+    from repro_torch.core.session import CQPSession
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
+
+    v = graph0.num_vertices
+    pairs = [(s, (s + v // 2) % v) for s in sources]
+    graph = copy_graph(graph0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    clock = Clock()
+    clock.wrap(lm, "transpose_graph", "transpose_graph_s")
+    try:
+        for K in (K1, K2, K3, K4):
+            K.reset_launches()  # ---- the main path starts here
+        sess = CQPSession(graph, engine="dense", backend="fused", batch_capacity=chunk, device=device,
+                          optimize="always")
+        rule = sess._planner.rules[0]
+        clock.wrap(sess, "_register_internal", "host_register_s")
+        clock.wrap(rule, "_twin_session", "twin_session_s")
+        t0 = time.perf_counter()
+        handles = sess.register_many([tplan.spsp(s, t, max_iters=48) for s, t in pairs])
+        torch.cuda.synchronize()
+        build = {"register_many_s": time.perf_counter() - t0, **clock.take()}
+        # the twin's registration: what _build_index spends beyond the
+        # host rows and the twin's construction (landmark selection included)
+        build["twin_register_s"] = build["register_many_s"] - build["host_register_s"] - build["twin_session_s"]
+        t0 = time.perf_counter()
+        landmark_targets(sess, handles)
+        build["first_refresh_s"] = time.perf_counter() - t0
+        clock.wrap(sess._impl, "apply_updates_batched", "host_maintain_s")
+        clock.wrap(rule.rev_session, "apply_updates", "twin_maintain_s")
+        chunks, reads = [], []
+        for lo in range(0, num_updates, chunk):
+            work0, sec0 = rule.pruned_work_total, rule.scratch_seconds
+            t0 = time.perf_counter()
+            sess.apply_updates_batched(stream[lo:lo + chunk])
+            reads = landmark_targets(sess, handles)
+            wall = time.perf_counter() - t0
+            iters, work = rule.pruned_iters_last, rule.pruned_work_total - work0
+            internal = sess._nbytes_per_query_map()
+            chunks.append({
+                "wall_s": wall, **clock.take(), "refresh_s": rule.scratch_seconds - sec0,
+                "pruned_iters": iters, "pruned_work": work,
+                "work_cut": 1.0 - work / max(iters * len(pairs) * v, 1),
+                "index_rows_nbytes": sum(internal[q] for q in sess._internal),
+                "twin_nbytes": sess._planner.extra_nbytes(),
+            })
+        launches = {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in (K1, K2, K3, K4)}  # ---- and ends here
+    finally:
+        clock.unwrap()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["fused_sweep"] == 0:
+        raise AssertionError("main_landmark: the forward index rows launched no fused_sweep")
+    cfg = lm.engine_cfg(len(pairs), v, tsr.min_plus(), max_iters=48)
+    want = scratch_like(cfg, sess.graph, lm.source_init([s for s, _ in pairs], v), device=device).answers()
+    want = [float(want[q, t]) for q, (_, t) in enumerate(pairs)]
+    if reads != want:
+        raise AssertionError(f"main_landmark: targets {reads} differ from SCRATCH {want}")
+    stats = sess.stats()["planner"]
+    timed = chunks[1:]  # chunk 0 is warm-up
+    out = {"num_vertices": v, "queries": len(pairs), "num_landmarks": rule.num_landmarks,
+           "landmarks": stats["landmark"]["landmarks"], "chunk": chunk, "updates": num_updates,
+           "build": build, "chunks": chunks,
+           "updates_per_s": chunk * len(timed) / sum(c["wall_s"] for c in timed),
+           "work_cut_mean": statistics.fmean(c["work_cut"] for c in chunks),
+           "index_nbytes_peak": max(c["index_rows_nbytes"] + c["twin_nbytes"] for c in chunks),
+           "launches": launches, "max_memory_allocated": peak, "memory_allocated_at_start": at_start,
+           "planner": stats, "targets": reads, "equals_scratch": True}
+    del sess, rule, handles
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_planner(device, num_vertices: int = 1 << 16) -> dict:
+    """``CQPSession(engine="dense", backend="fused", optimize="always")`` at
+    V = 2**16, 8 SPSP plans, three chunks of 32: the card against the
+    port's CPU run on the same inputs (every pruned field, ``iters``,
+    ``work`` and the planner's snapshot after every chunk); the card run is
+    checkpointed after the first chunk, restored on the card and replayed
+    to the same fields.  Then a governed leg on the card at a starved
+    budget: the index sheds, the targets stay equal to SCRATCH, the budget
+    is raised and calm passes re-materialise it, still exact."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core import landmark as lm
+    from repro_torch.core import plan as tplan
+    from repro_torch.core import semiring as tsr
+    from repro_torch.core.graph import DynamicGraph
+    from repro_torch.core.scratch import scratch_like
+    from repro_torch.core.session import CQPSession
+    from repro_torch.kernels import fused_sweep as K2
+
+    rng = np.random.default_rng(SEED + 7)
+    num_edges = round(num_vertices * PATENTS_E / PATENTS_V)
+    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), 96, 0.2, rng)
+    sources = pick_sources(DynamicGraph(num_vertices, initial), 8, rng)
+    pairs = [(s, (s + num_vertices // 2) % num_vertices) for s in sources]
+    chunks = [stream[lo:lo + 32] for lo in range(0, 96, 32)]
+    ckpt = OUT_DIR / "planner_ckpt"
+
+    def session(dev, **kw):
+        sess = CQPSession(DynamicGraph(num_vertices, initial), engine="dense", backend="fused",
+                          batch_capacity=32, optimize="always", device=dev, **kw)
+        return sess, sess.register_many([tplan.spsp(s, t, max_iters=48) for s, t in pairs])
+
+    def snapshot(sess, handles) -> dict:
+        lmk = dict(sess.stats()["planner"]["landmark"])
+        del lmk["scratch_seconds"]
+        return {"fields": np.stack([sess.answers(h) for h in handles]), "landmark": lmk}
+
+    def scratch_targets(sess) -> list[float]:
+        cfg = lm.engine_cfg(len(pairs), num_vertices, tsr.min_plus(), max_iters=48)
+        want = scratch_like(cfg, sess.graph, lm.source_init(sources, num_vertices), device=device).answers()
+        return [float(want[q, t]) for q, (_, t) in enumerate(pairs)]
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = {}
+    try:
+        for dev in (device, "cpu"):
+            K2.reset_launches()
+            sess, handles = session(dev)
+            steps = [snapshot(sess, handles)]
+            for k, batch in enumerate(chunks):
+                sess.apply_updates_batched(batch)
+                steps.append(snapshot(sess, handles))
+                if dev == device and k == 0:
+                    sess.checkpoint(str(ckpt))
+            runs[dev] = steps, K2.LAUNCHES, sess
+        card, launches, sess = runs[device]
+        cpu = runs["cpu"][0]
+        for k, (a, b) in enumerate(zip(card, cpu)):
+            np.testing.assert_array_equal(a["fields"], b["fields"], err_msg=f"pruned fields, step {k}")
+            if a["landmark"] != b["landmark"]:
+                raise AssertionError(f"planner snapshot, step {k}: {a['landmark']} vs {b['landmark']}")
+        if launches == 0:
+            raise AssertionError("parity_planner: no fused_sweep launch on the card")
+        if [float(x) for x in card[-1]["fields"][np.arange(len(pairs)), [t for _, t in pairs]]] \
+                != scratch_targets(sess):
+            raise AssertionError("parity_planner: targets differ from SCRATCH")
+        restored = CQPSession.restore(str(ckpt), device=device)
+        for batch in chunks[1:]:
+            restored.apply_updates_batched(batch)
+        back = snapshot(restored, restored.handles())
+        np.testing.assert_array_equal(back["fields"], card[-1]["fields"], err_msg="restore + replay")
+        restore_info = {"step": restored.restore_info["step"], "timings": restored.restore_info["timings"],
+                        "landmarks": back["landmark"]["landmarks"], "fields_equal": True}
+        del restored, runs, sess
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    gov, handles = session(device, budget_bytes=1)
+    gov.apply_updates_batched(chunks[0])
+    shed = dict(gov.stats()["planner"]["landmark"])
+    if not shed["shed"] or shed["sheds_total"] < 1:
+        raise AssertionError(f"parity_planner: the starved index did not shed: {shed}")
+    if landmark_targets(gov, handles) != scratch_targets(gov):
+        raise AssertionError("parity_planner: shed targets differ from SCRATCH")
+    gov.governor.budget_bytes = 1 << 40
+    for batch in chunks[1:]:
+        gov.apply_updates_batched(batch)
+    calm = 0
+    while not gov.stats()["planner"]["landmark"]["remats_total"] and calm < 8:
+        gov.apply_updates_batched([])
+        calm += 1
+    remat = dict(gov.stats()["planner"]["landmark"])
+    if not remat["live"] or remat["remats_total"] < 1:
+        raise AssertionError(f"parity_planner: the index did not re-materialise: {remat}")
+    if landmark_targets(gov, handles) != scratch_targets(gov):
+        raise AssertionError("parity_planner: re-materialised targets differ from SCRATCH")
+    del gov
+    torch.cuda.empty_cache()
+    return {"num_vertices": num_vertices, "num_edges_initial": int(initial.shape[0]), "queries": len(pairs),
+            "chunks": len(chunks), "card_equals_cpu": True, "fused_sweep_launches": launches,
+            "landmark": card[-1]["landmark"], "restore": restore_info,
+            "governed": {"shed": shed, "calm_passes": calm, "rematerialised": remat, "exact": True}}
+
+
 def cqp_serve_drill() -> dict:
     """``python -m repro_torch.launch.cqp_serve --json`` at its defaults on
     the card, per backend (``fused``, ``ell``): a plain run, a drill
     (checkpoint every 2 chunks, a fault before chunk 3) and a ``--restore``
     from the drill's directory; the three must end with equal per-query
     bytes and answer digests, and the kernel of the backend must launch.
-    The two backends' chains run side by side, each process to its end."""
+    Then ``--query spsp --optimize always``, plain and drilled (equal
+    digests; the landmark index live, the backend's kernel launched for its
+    forward rows), and ``--query spsp --engine scratch``: the target answers
+    of the three are equal.  Four chains (SSSP and SPSP on each backend)
+    run side by side, each process to its end."""
     import os
     import shutil
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     base = [sys.executable, "-m", "repro_torch.launch.cqp_serve", "--json"]
+    drill = ["--checkpoint-every", "2", "--inject-fault-at", "3"]
+    spsp = ["--query", "spsp", "--optimize", "always"]
 
-    def chain(backend: str) -> dict:
-        d = OUT_DIR / f"drill_{backend}"
+    def chain(job: tuple[str, str]) -> dict:
+        backend, query = job
+        d = OUT_DIR / f"drill_{backend}_{query}"
         shutil.rmtree(d, ignore_errors=True)
+        steps = {"sssp": (("plain", []),
+                          ("drill", ["--checkpoint-dir", str(d)] + drill),
+                          ("restore", ["--checkpoint-dir", str(d), "--restore"])),
+                 "spsp": (("spsp", spsp),
+                          ("spsp_drill", spsp + ["--checkpoint-dir", str(d)] + drill),
+                          ("spsp_scratch", ["--query", "spsp", "--engine", "scratch"]))}[query]
         runs = {}
         try:
-            for name, extra in (("plain", []),
-                                ("drill", ["--checkpoint-dir", str(d), "--checkpoint-every", "2",
-                                           "--inject-fault-at", "3"]),
-                                ("restore", ["--checkpoint-dir", str(d), "--restore"])):
+            for name, extra in steps:
                 t0 = time.perf_counter()
                 proc = subprocess.run(base + ["--backend", backend] + extra, capture_output=True, text=True,
                                       env=env, cwd=str(ROOT), timeout=600)
@@ -1972,29 +2244,46 @@ def cqp_serve_drill() -> dict:
                 runs[name] = {"wall_s": time.perf_counter() - t0, **{k: res[k] for k in (
                     "updates_per_sec", "p50_ms", "p99_ms", "nbytes_per_query", "answers_sha256",
                     "kernel_launches")}}
+                if query == "spsp":
+                    runs[name]["targets"] = [a["value"] for a in res["aggregates"]]
+                    if "planner" in res:
+                        runs[name]["planner"] = res["planner"]
                 if "recovery" in res:
                     runs[name]["recovery"] = {k: res["recovery"][k] for k in (
                         "history", "restarts", "replayed_chunks", "checkpoints", "checkpoint_bytes",
                         "restore_latency_s")}
         finally:
             shutil.rmtree(d, ignore_errors=True)
-        for name in ("drill", "restore"):
-            for key in ("nbytes_per_query", "answers_sha256"):
-                if runs[name][key] != runs["plain"][key]:
-                    raise AssertionError(f"cqp_serve {backend} {name}: {key} differs from the plain run")
-        if "fault@3:InjectedFault" not in runs["drill"]["recovery"]["history"]:
-            raise AssertionError(f"cqp_serve {backend} drill history {runs['drill']['recovery']['history']}")
         kernel = "fused_sweep" if backend == "fused" else "ell_spmv"
-        for name in ("plain", "drill"):
+        first, drilled = ("plain", "drill") if query == "sssp" else ("spsp", "spsp_drill")
+        for name in (first, drilled):
             if runs[name]["kernel_launches"][kernel] == 0:
                 raise AssertionError(f"cqp_serve {backend} {name} launched no {kernel}")
+        if "fault@3:InjectedFault" not in runs[drilled]["recovery"]["history"]:
+            raise AssertionError(f"cqp_serve {backend} {drilled} history {runs[drilled]['recovery']['history']}")
+        if query == "sssp":
+            for name in ("drill", "restore"):
+                for key in ("nbytes_per_query", "answers_sha256"):
+                    if runs[name][key] != runs["plain"][key]:
+                        raise AssertionError(f"cqp_serve {backend} {name}: {key} differs from the plain run")
+            return runs
+        if runs["spsp_drill"]["answers_sha256"] != runs["spsp"]["answers_sha256"]:
+            raise AssertionError(f"cqp_serve {backend} spsp drill: answer digests differ from the plain run")
+        for name in ("spsp", "spsp_drill"):
+            lmk = runs[name]["planner"]["landmark"]
+            if runs[name]["planner"]["rewrites_total"] < len(runs[name]["targets"]) or not lmk["live"]:
+                raise AssertionError(f"cqp_serve {backend} {name}: planner {runs[name]['planner']}")
+            if runs[name]["targets"] != runs["spsp_scratch"]["targets"]:
+                raise AssertionError(f"cqp_serve {backend} {name}: targets differ from the scratch run")
         return runs
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        fused, ell = ex.map(chain, ("fused", "ell"))
+    jobs = [(b, q) for b in ("fused", "ell") for q in ("sssp", "spsp")]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+        done = dict(zip(jobs, ex.map(chain, jobs)))
     return {"args": "--v 512 --e 2048 --queries 8 --updates 256 --batch 32 (the CLI defaults)",
-            "seconds": time.perf_counter() - t0, "fused": fused, "ell": ell, "equal": True}
+            "seconds": time.perf_counter() - t0, "equal": True,
+            **{b: {**done[(b, "sssp")], **done[(b, "spsp")]} for b in ("fused", "ell")}}
 
 
 def parity_session(device, num_vertices: int = 1 << 16) -> dict:
@@ -2075,12 +2364,8 @@ def parity_session(device, num_vertices: int = 1 << 16) -> dict:
         live = eng.active_slots()
         got = eng.answers()[live]
         want = scratch_like(eng.cfg, eng.graph, eng.state.init[live], device=device).answers()
-        if mode == "jod":
-            np.testing.assert_array_equal(got, want)
-            row["equals_scratch"] = True
-        else:
-            row["scratch_mismatches"] = int((got != want).sum())
-            row["scratch_mismatch_note"] = SCRATCH_MISMATCH_NOTE
+        np.testing.assert_array_equal(got, want)
+        row["equals_scratch"] = True
         key = "vdc" if mode == "vdc" else drop_mode
         got_leaves = {k: x.cpu() for k, x in (vdc_leaves if mode == "vdc" else state_leaves)(eng.state).items()}
         if key in leaves:
@@ -2907,12 +3192,15 @@ def main() -> None:
     emit("main_session", **session_out)
     serve_out = main_serve(graph0, stream, qsources, device=dev, chunk=chunk, num_updates=num_updates)
     emit("main_serve", **serve_out)
+    landmark_out = main_landmark(graph0, stream, qsources, device=dev, chunk=chunk)
+    emit("main_landmark", **landmark_out)
     del graph0
     torch.cuda.empty_cache()
 
     emit("parity_fused", **parity_fused(dev))
     emit("parity_vdc", **parity_vdc(dev))
     emit("parity_session", **parity_session(dev))
+    emit("parity_planner", **parity_planner(dev))
     drill = cqp_serve_drill()
     emit("cqp_serve_drill", **drill)
 
@@ -2951,11 +3239,12 @@ def main() -> None:
     k3 = real["bloom_query"]
     k4 = vdc_real["diff_lookup"]
     # launches over every main-path run: the ell engine, the three fused
-    # ones, the two VDC ones, the governed session, the two server runs and
-    # the six cqp_serve processes of the drill
+    # ones, the two VDC ones, the governed session, the two server runs, the
+    # landmark session and the twelve cqp_serve processes of the drill
     all_runs = {"ell": main_out, **{f"fused_{m}": r for m, r in runs.items()},
                 **{f"vdc_{b}": r for b, r in vdc_runs.items()}, "session": session_out,
                 "serve": serve_out["fault_run"], "serve_clean": serve_out["clean_run"],
+                "landmark": landmark_out,
                 **{f"cqp_serve_{b}_{n}": {"launches": r["kernel_launches"]}
                    for b in ("fused", "ell") for n, r in drill[b].items()}}
     launches = {k: sum(r["launches"][k] for r in all_runs.values())

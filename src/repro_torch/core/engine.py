@@ -382,7 +382,7 @@ class _Carry(NamedTuple):
     cur_old: Tensor  # pre-update trajectory value at i-1 (store-lookup based)
     stale_old: Tensor  # bool [Q,V]: old trajectory obscured by a dropped diff
     frontier: Tensor  # bool [Q,V]: δD direct-rule schedule for iteration i
-    changed_prev: Tensor  # bool [Q,V]: value changed at i-1 (feeds the J updates)
+    changed_prev: Tensor  # bool [Q,V]: changed at i-1, or (VDC) scheduled there (feeds the J updates)
     dstore: ds.DiffStore
     jstore: ds.DiffStore | None  # the sweep's own clone, updated in place (vdc)
     drop: dr.DropState
@@ -537,9 +537,14 @@ def _vdc_candidate(
 ) -> tuple[Tensor, Tensor]:
     """VDC's D_i candidate: maintain J at iteration i, then aggregate it.
 
-    An edge's message changes when its source changed at i-1 or its
-    destination was touched by δE (``dirty_pad`` has a padding column, so a
-    destination ``== V`` stays legal); a changed message is upserted into
+    An edge's message is re-checked when its source was scheduled or changed
+    at i-1 (``c.changed_prev``) or its destination was touched by δE
+    (``dirty_pad`` has a padding column, so a destination ``== V`` stays
+    legal).  A source scheduled at i-1 whose value rejoined the old
+    trajectory reads as unchanged, yet the message stored for it may be one
+    written earlier in the same sweep; gating on "changed" alone leaves that
+    row stale under deletions (the reference's gate, ROADMAP Queue 3).  A
+    message that differs from the stored one is upserted into
     the J store where the slot materializes its Join (``join_mat``) — in
     place, into the sweep's clone.  The aggregator then reads the stored
     messages for materializing slots and the on-demand ones otherwise.
@@ -609,7 +614,10 @@ def _sweep_body(
         cur_old=step.old,
         stale_old=step.stale,
         frontier=frontier_next,
-        changed_prev=step.changed,
+        # VDC: a vertex rescheduled at i may have reverted to its old value
+        # without reading as changed; its out-edges' stored messages must be
+        # re-checked at i+1 all the same, or a stale J row outlives it
+        changed_prev=(step.changed | sched) if cfg.mode == "vdc" else step.changed,
         dstore=step.dstore,
         jstore=c.jstore,
         drop=step.drop,

@@ -1,8 +1,8 @@
 """Memory governor — budget-driven adaptive dropping (closed-loop §5).
 
 The port of ``repro/core/governor.py`` (pure Python, unchanged but for the
-package it imports).  The planner's landmark pseudo-operator below comes
-with the planner's slice of the port (ROADMAP Queue 1 item 5).
+package it imports).  Its ``landmark`` rung acts on the plan optimizer's
+shared index (``repro_torch.planner.landmark_rewrite``).
 
 The paper shows *what* to drop (Det/Bloom DroppedVT, Random/Degree
 selection) and measures the memory/recompute trade-off per hand-tuned

@@ -30,12 +30,17 @@ updates, so the engines never know about automata.  With ``budget_bytes``
 a :class:`~repro_torch.core.governor.MemoryGovernor` enforces the byte
 budget after every ingest, register and deregister.
 
+With ``optimize="auto"|"always"`` the plan optimizer
+(:mod:`repro_torch.planner`) rewrites matching plans at registration: SPSP
+plans share one landmark index whose forward fields are *internal* engine
+rows of this session and whose reverse fields live in a twin session over
+Gᵀ, and answer through pruned-scratch subqueries.
+
 ``checkpoint``/``restore`` write and read the reference's checkpoint
-format (``checkpoint/store.py``): a session checkpointed by either package
-restores in the other.  Two pieces wait for their own slices of the port
-and raise :class:`NotImplementedError`: the plan optimizer (``optimize``
-other than ``"none"``, ROADMAP Queue 1 item 5) and the vertex-sharded sweep
-(``mesh=``, item 4).
+format (``checkpoint/store.py``), planner state included: a session
+checkpointed by either package restores in the other.  The vertex-sharded
+sweep (``mesh=``, ROADMAP Queue 1 item 4) waits for its own slice of the
+port and raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -60,7 +65,6 @@ from repro_torch.obs.probes import maintain_stats_dict, publish_session_metrics
 
 ENGINES = ("dense", "host", "scratch")
 
-PLANNER = "the plan optimizer's slice of the port (ROADMAP Queue 1 item 5)"
 SHARDED = "the sharded slice of the port (ROADMAP Queue 1 item 4)"
 
 # session checkpoint manifest-meta layout version (the reference's)
@@ -286,8 +290,6 @@ class CQPSession:
             raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
         if optimize not in ("none", "auto", "always"):
             raise ValueError(f"unknown optimize mode {optimize!r}; choose none | auto | always")
-        if optimize != "none":
-            raise NotImplementedError(f"optimize={optimize!r} is not ported yet: it comes with {PLANNER}")
         if mesh is not None:
             if engine != "dense":
                 raise ValueError("mesh sharding is a dense-engine feature")
@@ -337,6 +339,16 @@ class CQPSession:
         self._next_qid = 0
         self._runtime: dict = {}  # serving-runtime observers (stats()["runtime"])
         self.restore_info: dict | None = None  # set by CQPSession.restore
+        # plan optimizer (repro_torch.planner): rewrites matching plans at
+        # registration; qids it owns answer through rule-owned runtimes, and
+        # qids it registers for shared subplans are *internal* — excluded
+        # from every public per-query view but governor-addressable
+        self._optimize = optimize
+        self._planner = None
+        self._internal: set[int] = set()
+        self._governing = False  # re-entrancy guard (remat registers inside enforce)
+        if optimize != "none":
+            self._ensure_planner()
         # lifetime counters (stats())
         self.registered_total = 0
         self.deregistered_total = 0
@@ -347,8 +359,18 @@ class CQPSession:
     # ------------------------------------------------------------ lifecycle
     def register(self, plan: qp.QueryPlan, *, optimize: str | None = None) -> QueryHandle:
         """Register one query; its trace is computed in-engine (mid-stream
-        registration converges to the same answers as from-start)."""
+        registration converges to the same answers as from-start).
+
+        ``optimize`` overrides the session's optimizer mode for this call
+        (``"none"`` | ``"auto"`` | ``"always"`` — see `repro_torch.planner`)."""
         return self.register_many([plan], optimize=optimize)[0]
+
+    def _ensure_planner(self):
+        if self._planner is None:
+            from repro_torch.planner.rules import Planner
+
+            self._planner = Planner(self, self._optimize if self._optimize != "none" else "auto")
+        return self._planner
 
     def register_many(
         self, plans: list[qp.QueryPlan], *, optimize: str | None = None
@@ -359,23 +381,47 @@ class CQPSession:
         Atomic: a rejected batch (family mismatch, drop-mode conflict, an
         engine that cannot run the family) leaves the session exactly as it
         was, including across the deferred first engine build.
+
+        With the plan optimizer active (session ``optimize=`` or the
+        per-call override), each plan first runs through the rewrite rules:
+        matches that pay are admitted to the owning rule's shared runtime
+        instead of an engine slot, and their handles carry the rewritten
+        (provenance-stamped) plan.
         """
-        if optimize not in (None, "none"):
-            if optimize not in ("auto", "always"):
-                raise ValueError(f"unknown optimize mode {optimize!r}; choose none | auto | always")
-            raise NotImplementedError(f"optimize={optimize!r} is not ported yet: it comes with {PLANNER}")
         if not plans:
             return []
         plans = list(plans)
-        qids = self._register_engine_plans(plans)
-        handles = [QueryHandle(qid=qid, plan=self._plans[qid]) for qid in qids]
+        mode = self._optimize if optimize is None else optimize
+        if mode not in ("none", "auto", "always"):
+            raise ValueError(f"unknown optimize mode {mode!r}; choose none | auto | always")
+        # validate the WHOLE batch before committing any session state
+        self._check_batch(plans)
+        rules: dict[int, object] = {}
+        if mode != "none":
+            planner = self._ensure_planner()
+            for i, plan in enumerate(plans):
+                rule = planner.consider(plan, mode)
+                if rule is not None:
+                    rules[i] = rule
+        handles: list[QueryHandle | None] = [None] * len(plans)
+        engine_idx = [i for i in range(len(plans)) if i not in rules]
+        if engine_idx:
+            qids = self._register_engine_plans([plans[i] for i in engine_idx])
+            for i, qid in zip(engine_idx, qids):
+                handles[i] = QueryHandle(qid=qid, plan=self._plans[qid])
+        for i in sorted(rules):
+            qid = self._next_qid
+            self._next_qid += 1
+            new_plan = self._planner.admit(qid, plans[i], rules[i])
+            self._plans[qid] = new_plan
+            self.registered_total += 1
+            handles[i] = QueryHandle(qid=qid, plan=new_plan)
         self._govern()
         return handles
 
-    def _register_engine_plans(self, plans: list[qp.QueryPlan]) -> list[int]:
-        """The engine-slot registration path: validate the whole batch,
-        commit the family, build the engine on first use, unwind on any
-        failure."""
+    def _check_batch(self, plans: list[qp.QueryPlan]) -> tuple:
+        """Validate a batch against the session family and DroppedVT
+        representation (pure); returns the family key."""
         base = self._family if self._family is not None else plans[0].family_key()
         spec = self._drop_spec
         if spec is None and self._impl is None:
@@ -387,6 +433,15 @@ class CQPSession:
                     f"plan drop mode {plan.drop.mode!r} does not match the "
                     f"session's DroppedVT representation {spec.mode!r}"
                 )
+        return base
+
+    def _register_engine_plans(self, plans: list[qp.QueryPlan], *, internal: bool = False) -> list[int]:
+        """The engine-slot registration path: validate the whole batch,
+        commit the family, build the engine on first use, unwind on any
+        failure.  ``internal=True`` registers planner-owned subplan rows:
+        full engine and governor citizens, excluded from the public
+        per-query views and the ``registered_total`` counter."""
+        base = self._check_batch(plans)
         fresh = self._impl is None
         saved = (self._family, self._nfa, self._drop_spec, self._egraph)
         if self._family is None:
@@ -419,15 +474,46 @@ class CQPSession:
             self._next_qid += 1
             self._handles[qid] = slot
             self._plans[qid] = plan
-            self.registered_total += 1
+            if internal:
+                self._internal.add(qid)
+            else:
+                self.registered_total += 1
             if self._governor is not None:
                 self._governor.on_register(qid, plan)
             qids.append(qid)
         return qids
 
+    def _register_internal(self, plans: list[qp.QueryPlan]) -> list[int]:
+        """Planner hook: register shared-subplan rows (e.g. the landmark
+        index's SSSP fields) as internal engine queries."""
+        return self._register_engine_plans(plans, internal=True)
+
+    def _deregister_internal(self, qids) -> int:
+        """Planner hook: retire internal subplan rows; returns bytes freed."""
+        freed = 0
+        for qid in list(qids):
+            slot = self._handles.pop(qid)
+            freed += self._impl.deregister_plan(slot)
+            del self._plans[qid]
+            self._internal.discard(qid)
+            if self._governor is not None:
+                self._governor.on_deregister(qid)
+        return freed
+
     def deregister(self, handle: QueryHandle) -> int:
         """Retire a query: its difference rows are emptied and the accounted
-        bytes released are returned; the slot returns to the free pool."""
+        bytes released are returned; the slot returns to the free pool.
+        A planner-owned query releases through its rule (the shared index
+        tears down with its last sharer)."""
+        if handle.qid in self._internal:
+            raise ValueError("internal planner subqueries retire with their shared state")
+        if self._planner is not None and self._planner.owns(handle.qid):
+            freed = self._planner.release(handle.qid)
+            del self._plans[handle.qid]
+            self.deregistered_total += 1
+            self.bytes_freed_total += freed
+            self._govern()
+            return freed
         slot = self._slot(handle)
         freed = self._impl.deregister_plan(slot)
         del self._handles[handle.qid], self._plans[handle.qid]
@@ -512,11 +598,14 @@ class CQPSession:
         base graph, translate through the NFA when the family has one, then
         hand the batch to ``engine_call`` and enforce the budget."""
         updates = list(updates)
+        base_updates = updates  # pre-NFA δE, for the planner's twin feeds
         self.updates_applied += len(updates)
         if self._impl is None:
             # no engine yet: updates land on the base graph, which the
             # engine build snapshots
             self.graph.apply_batch(updates)
+            if self._planner is not None:
+                self._planner.on_updates(base_updates)
             return None
         with obs_trace.span(
             "update_batch",
@@ -533,6 +622,10 @@ class CQPSession:
                     self._govern()
                     return self.last_stats
             out = engine_call(updates)
+            if self._planner is not None:
+                # engine maintenance (the internal index rows included) ran:
+                # rules now refresh their rewritten queries' runtimes
+                self._planner.on_updates(base_updates)
             self._govern()
         return out
 
@@ -553,7 +646,11 @@ class CQPSession:
     # ------------------------------------------------------------------ api
     def answers(self, handle: QueryHandle) -> np.ndarray:
         """The query's final vertex states. [V] ([V·|S|] for RPQ plans —
-        see :meth:`reachable`)."""
+        see :meth:`reachable`).  Planner-rewritten queries answer through
+        their owning rule's runtime (e.g. the landmark pruned-scratch
+        subquery — exact at the plan's target vertex)."""
+        if self._planner is not None and self._planner.owns(handle.qid):
+            return self._planner.answers(handle.qid)
         return self._impl.answers_row(self._slot(handle))
 
     def reachable(self, handle: QueryHandle) -> np.ndarray:
@@ -608,7 +705,9 @@ class CQPSession:
         raise ValueError(f"unknown aggregate {node.agg!r}")
 
     def _public_qids(self) -> list[int]:
-        return sorted(self._plans)
+        """Ascending qids of client-registered queries (planner-internal
+        subplan rows excluded)."""
+        return [q for q in sorted(self._plans) if q not in self._internal]
 
     def handles(self) -> list[QueryHandle]:
         return [QueryHandle(qid=q, plan=self._plans[q]) for q in self._public_qids()]
@@ -622,17 +721,29 @@ class CQPSession:
         concurrent readers never observe a half-applied δE chunk.  Every
         engine's ``answers_row`` returns such a copy (the dense engine's a
         synchronous device → host copy)."""
-        if self._impl is None:
-            return {}
-        return {qid: self._impl.answers_row(slot) for qid, slot in self._handles.items()}
+        out: dict[int, np.ndarray] = {}
+        if self._impl is not None:
+            out = {
+                qid: self._impl.answers_row(slot)
+                for qid, slot in self._handles.items()
+                if qid not in self._internal
+            }
+        if self._planner is not None:
+            out.update(self._planner.answers_snapshot())
+        return out
 
     def nbytes(self) -> int:
-        return 0 if self._impl is None else self._impl.nbytes()
+        total = 0 if self._impl is None else self._impl.nbytes()
+        if self._planner is not None:
+            total += self._planner.extra_nbytes()
+        return total
 
     def nbytes_per_query(self) -> list[int]:
         """Accounted bytes per registered query, aligned with
         :meth:`handles` (ascending qid) — the ``[Q]`` breakdown the memory
-        governor meters."""
+        governor meters.  Planner-rewritten queries read 0 here: their
+        shared state is accounted under the internal index rows and the
+        ``(PLANNER_QID, op)`` pseudo-operator."""
         per = self._nbytes_per_query_map()
         return [per[qid] for qid in self._public_qids()]
 
@@ -645,10 +756,13 @@ class CQPSession:
         return [{op: b for (q, op), b in per.items() if q == qid} for qid in self._public_qids()]
 
     def _nbytes_per_query_map(self) -> dict[int, int]:
-        if self._impl is None:
-            return {}
-        by_slot = self._impl.nbytes_per_query()
-        return {qid: by_slot.get(slot, 0) for qid, slot in self._handles.items()}
+        out: dict[int, int] = {}
+        if self._impl is not None:
+            by_slot = self._impl.nbytes_per_query()
+            out = {qid: by_slot.get(slot, 0) for qid, slot in self._handles.items()}
+        if self._planner is not None:
+            out.update({qid: 0 for qid in self._planner.owned})
+        return out
 
     def _per_op_map(self, by_slot: dict[int, dict[str, int]]) -> dict[tuple[int, str], int]:
         out: dict[tuple[int, str], int] = {}
@@ -661,13 +775,19 @@ class CQPSession:
         return out
 
     def _nbytes_per_op_map(self) -> dict[tuple[int, str], int]:
-        """(qid, op_id) → accounted bytes — the governor's victim table."""
-        return {} if self._impl is None else self._per_op_map(self._impl.nbytes_per_operator())
+        """(qid, op_id) → accounted bytes — the governor's victim table.
+        Internal subplan rows appear under their own qids; rule-owned
+        shared state adds ``(PLANNER_QID, op)`` pseudo-rows."""
+        out = {} if self._impl is None else self._per_op_map(self._impl.nbytes_per_operator())
+        if self._planner is not None:
+            out.update(self._planner.pseudo_ops())
+        return out
 
     def _recompute_cost_op_map(self) -> dict[tuple[int, str], int]:
-        if self._impl is None:
-            return {}
-        return self._per_op_map(self._impl.recompute_cost_per_operator())
+        out = {} if self._impl is None else self._per_op_map(self._impl.recompute_cost_per_operator())
+        if self._planner is not None:
+            out.update(self._planner.pseudo_costs())
+        return out
 
     # --------------------------------------------------------- drop policy
     def set_drop_policy(self, handle: QueryHandle, cfg: dr.DropConfig, op: str = "iterate") -> int:
@@ -683,10 +803,25 @@ class CQPSession:
     def _require_qid(self, handle: QueryHandle) -> int:
         if handle.qid in self._handles:
             return handle.qid
+        if self._planner is not None and self._planner.owns(handle.qid):
+            return handle.qid
         raise ValueError(f"handle {handle.qid} is not registered")
 
     def _set_op_drop_policy_qid(self, qid: int, op: str, cfg: dr.DropConfig) -> int:
+        if qid < 0:
+            # governor rung for planner-owned shared state: an enabled config
+            # sheds it (landmark de-materialization), a disabled one
+            # re-materializes it — routed to the rule owning the pseudo-op
+            freed = self._ensure_planner().set_pseudo_policy(op, cfg)
+            self.bytes_shed_total += max(int(freed), 0)
+            return int(freed)
         if qid not in self._handles:
+            if self._planner is not None and self._planner.owns(qid):
+                raise ValueError(
+                    f"query {qid} answers through a planner rewrite and owns no "
+                    "engine difference store; its shared state is governed as a "
+                    "(PLANNER_QID, op) pseudo-operator"
+                )
             raise ValueError(f"query {qid} is not registered")
         freed = self._impl.set_drop_params(self._handles[qid], cfg, op_id=op)
         plan = self._plans[qid]
@@ -713,13 +848,22 @@ class CQPSession:
         return None if self._governor is None else self._governor.budget_bytes
 
     def _govern(self) -> None:
-        if self._governor is None or self._impl is None or not self._handles:
+        if self._governor is None or self._impl is None or self._governing:
             return
-        self._governor.enforce(self)
+        if not self._handles and (self._planner is None or not self._planner.owned):
+            return
+        # the guard makes enforcement non-reentrant: a de-escalation that
+        # re-materializes a planner index registers internal plans, and that
+        # path must not recurse into enforce()
+        self._governing = True
+        try:
+            self._governor.enforce(self)
+        finally:
+            self._governing = False
 
     @property
     def num_queries(self) -> int:
-        return len(self._plans)
+        return len(self._plans) - len(self._internal)
 
     @property
     def last_stats(self):
@@ -748,6 +892,8 @@ class CQPSession:
         }
         if self._governor is not None:
             out["governor"] = self._governor.snapshot(self)
+        if self._planner is not None:
+            out["planner"] = self._planner.snapshot()
         if isinstance(self._impl, DenseEngine):
             out["slot_capacity"] = self._impl.impl.slot_capacity
             out["shards"] = 1
@@ -829,11 +975,15 @@ class CQPSession:
             "engine_state": self._impl is not None,
             "engine_meta": None,
             "governor": None,
-            "optimize": "none",
-            "internal": [],
+            "optimize": self._optimize,
+            "internal": sorted(self._internal),
             "planner": None,
             "user": extra,
         }
+        if self._planner is not None:
+            p_arrays, p_meta = self._planner.state_dict()
+            arrays.update(p_arrays)
+            meta["planner"] = p_meta
         if self._impl is not None:
             meta["family_plan"] = self._family_plan.to_json()
             if self._nfa is not None:
@@ -899,10 +1049,6 @@ class CQPSession:
             raise ValueError(f"unsupported session checkpoint format {meta.get('format')!r}")
         if mesh is not None:
             raise NotImplementedError(f"restoring onto a mesh is not ported yet: it comes with {SHARDED}")
-        if meta.get("planner") is not None or meta.get("internal"):
-            raise NotImplementedError(
-                f"this checkpoint holds plan-optimizer state, which is not ported yet: it comes with {PLANNER}"
-            )
         timings = {} if timings is None else timings
         device = resolve_device(device)
 
@@ -1000,4 +1146,8 @@ class CQPSession:
             timings["graph_s"] = clock() - t
         if gov is not None:
             sess._governor.load_state(gov)
+        sess._internal = {int(q) for q in meta.get("internal", [])}
+        pm = meta.get("planner")
+        if pm is not None:
+            sess._ensure_planner().load_state(pm, arrays)
         return sess

@@ -10,8 +10,9 @@ initialized in-engine), ``--deregister-at K`` retires the oldest live query
 and reclaims its difference bytes.  Reports updates/sec, p50/p99 per-chunk
 maintenance latency, peak diff-store bytes, and churn-event latencies; the
 JSON line adds one SHA-256 digest of each query's final answers, so two runs
-(a fault drill and the uninterrupted run) compare bit for bit, and the
-process's launches of each CUDA kernel.
+(a fault drill and the uninterrupted run) compare bit for bit, each query's
+Aggregate (an SPSP plan's target distance), and the process's launches of
+each CUDA kernel.
 
 ``--engine`` selects the executor behind the same session API:
 
@@ -20,9 +21,11 @@ process's launches of each CUDA kernel.
     host     the paper's pointer machine (work ∝ affected set, on the host)
     scratch  from-scratch re-execution baseline
 
+``--optimize auto|always`` runs the plan optimizer (`repro_torch.planner`):
+``--query spsp`` plans then share one landmark index and answer through
+pruned-scratch subqueries; the JSON report carries the planner's block.
 ``--mesh`` other than ``none`` and ``--emulate-devices`` (the vertex-sharded
-sweep, ROADMAP Queue 1 item 4) and ``--optimize`` other than ``none`` (the
-plan optimizer, item 5) are not ported yet and exit with a message.
+sweep, ROADMAP Queue 1 item 4) are not ported yet and exit with a message.
 
 ``--budget-bytes`` puts the stream under the memory governor (DESIGN.md
 §10): a global accounted-byte budget enforced online by escalating each
@@ -42,6 +45,9 @@ Examples::
         --v 512 --e 2048 --queries 16 --updates 256 --batch 32 --backend ell
     # the plain PyTorch versions on the CPU
     PYTHONPATH=src python -m repro_torch.launch.cqp_serve --smoke --device cpu
+    # SPSP through the landmark hub-cut (one shared index, pruned scratch)
+    PYTHONPATH=src python -m repro_torch.launch.cqp_serve --smoke --json \
+        --query spsp --optimize always --backend fused
     # operator-graph plans from JSON (e.g. an RPQ with a materialized join)
     PYTHONPATH=src python -m repro_torch.launch.cqp_serve --smoke --json \
         --plan-file plans.json --backend coo
@@ -78,7 +84,6 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.metrics import PhaseRecorder, summarize_latency_s
 
 SHARDED = "the vertex-sharded sweep is not ported yet (ROADMAP Queue 1 item 4)"
-PLANNER = "the plan optimizer is not ported yet (ROADMAP Queue 1 item 5)"
 
 
 def make_mesh(kind: str, shards: int | None):
@@ -424,6 +429,10 @@ def serve(args) -> dict:
             hashlib.sha256(np.ascontiguousarray(session.answers(h), np.float32).tobytes()).hexdigest()
             for h in session.handles()
         ],
+        # each query's Aggregate (null for a plan without one): an SPSP
+        # plan's target distance, exact under the landmark rewrite too
+        "aggregates": [session.aggregate(h) if h.plan.aggregate is not None else None
+                       for h in session.handles()],
         # kernel launches of this process (a restore's replay included)
         "kernel_launches": {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES
                             for K in (ell_spmv, fused_sweep, bloom, diff_lookup)},
@@ -447,6 +456,9 @@ def serve(args) -> dict:
             "settled_peak_bytes": int(M["settled_peak"]),
             "budget_respected": bool(M["settled_peak"] <= gov.budget_bytes),
         }
+    planner_stats = session.stats().get("planner")
+    if planner_stats is not None:
+        out["planner"] = planner_stats
     print(
         f"cqp_serve[{args.query}/{args.engine}/{args.backend}] "
         f"Q={args.queries}→{out['final_queries']} B={b}: "
@@ -478,6 +490,16 @@ def serve(args) -> dict:
             f"({'respected' if g['budget_respected'] else 'VIOLATED'}; "
             f"{g['escalations']} escalation(s), "
             f"{g['deescalations']} de-escalation(s))"
+        )
+    if "planner" in out:
+        p = out["planner"]
+        lmk = p.get("landmark", {})
+        print(
+            f"  planner[{p['mode']}]: {p['rewrites_total']} rewrite(s), "
+            f"landmark index live={lmk.get('live')} "
+            f"bytes={lmk.get('index_nbytes', 0)} "
+            f"(sheds={lmk.get('sheds_total', 0)}, "
+            f"remats={lmk.get('remats_total', 0)})"
         )
     if "recovery" in out:
         r = out["recovery"]
@@ -523,8 +545,10 @@ def main(argv=None) -> None:
         "--optimize",
         choices=("none", "auto", "always"),
         default="none",
-        help="plan optimizer mode: only 'none' is ported (auto and always "
-        "come with ROADMAP Queue 1 item 5)",
+        help="plan optimizer mode (repro_torch.planner): auto rewrites matching "
+        "plans when the cost model says the rewrite pays (e.g. --query spsp "
+        "onto the shared landmark index, DESIGN.md §16); always bypasses "
+        "the cost gate",
     )
     ap.add_argument(
         "--plan-file",
@@ -691,8 +715,6 @@ def main(argv=None) -> None:
         ap.exit(2, f"--emulate-devices: {SHARDED}\n")
     if args.mesh != "none":
         ap.exit(2, f"--mesh {args.mesh}: {SHARDED}\n")
-    if args.optimize != "none":
-        ap.exit(2, f"--optimize {args.optimize}: {PLANNER}\n")
     if args.smoke:
         args.v, args.e = min(args.v, 64), min(args.e, 256)
         args.queries = min(args.queries, 4)

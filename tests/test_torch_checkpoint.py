@@ -385,7 +385,8 @@ def test_governor_escalations_survive_restore(tmp_path):
 
 def test_restore_refuses_bad_meta(tmp_path):
     """A foreign checkpoint (no session meta), an unknown format, a bad
-    reference knob, plan-optimizer state and ``mesh=`` are refused by name."""
+    reference knob and ``mesh=`` are refused by name; plan-optimizer state
+    restores."""
     tstore.save_checkpoint(str(tmp_path / "foreign"), 0, {"x": np.zeros(3)})
     with pytest.raises(ValueError, match="no session meta"):
         TSession.restore(str(tmp_path / "foreign"), device=CPU)
@@ -401,13 +402,16 @@ def test_restore_refuses_bad_meta(tmp_path):
         ({"format": 2}, ValueError, "format"),
         ({"kw": {**meta["kw"], "ell_block_v": 0}}, ValueError, "ell_block_v"),
         ({"kw": {**meta["kw"], "interpret": "yes"}}, ValueError, "interpret"),
-        ({"planner": {"rules": []}}, NotImplementedError, "Queue 1 item 5"),
     ]:
         with pytest.raises(err, match=match):
             TSession._from_state(arrays, {**meta, **bad}, device=CPU)
     ok = TSession._from_state(arrays, {**meta, "kw": {**meta["kw"], "ell_block_v": 64, "interpret": True}},
                               device=CPU)
     assert ok.num_queries == 1
+    planned = TSession._from_state(arrays, {**meta, "optimize": "auto", "planner": {
+        "mode": "always", "rewrites_total": 3, "owned": {}, "rules": {}}}, device=CPU)
+    assert planned._planner.mode == "always" and planned._planner.rewrites_total == 3
+    assert planned.num_queries == 1 and planned._internal == set()
     with pytest.raises(ValueError, match="live plans but no engine"):
         TSession._from_state(arrays, {**meta, "engine_state": False}, device=CPU)
     s.checkpoint(str(tmp_path / "ok"))

@@ -377,9 +377,12 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
     assert len(imported) >= 23
-    # the dropping / fused, VDC and LM serving slices' modules are among those checked
+    # the dropping / fused, VDC, LM serving and plan-optimizer slices'
+    # modules are among those checked
     assert {"repro_torch.core.bloom", "repro_torch.core.dropping", "repro_torch.core.convert",
             "repro_torch.kernels.fused_sweep", "repro_torch.kernels.bloom",
             "repro_torch.core.access", "repro_torch.kernels.diff_lookup",
             "repro_torch.models.transformer", "repro_torch.kernels.flash_attn",
-            "repro_torch.launch.model_serve"} <= imported
+            "repro_torch.launch.model_serve", "repro_torch.core.landmark", "repro_torch.planner",
+            "repro_torch.planner.cost", "repro_torch.planner.rules",
+            "repro_torch.planner.landmark_rewrite"} <= imported

@@ -713,7 +713,8 @@ def test_cqp_serve_fault_drill_matches_the_reference(monkeypatch, tmp_path):
 def test_cqp_serve_cli_subprocess(tmp_path):
     """``python -m repro_torch.launch.cqp_serve --smoke --json --device cpu``
     with the fault drill: the JSON line's recovery block and answer
-    digests; the unported flags exit with their ROADMAP items."""
+    digests; ``--query spsp --optimize auto`` runs, and its target answers
+    equal an un-rewritten SCRATCH run's."""
     src = Path(__file__).resolve().parents[1] / "src"
     env = dict(os.environ, PYTHONPATH=str(src))
     cmd = [sys.executable, "-m", "repro_torch.launch.cqp_serve", "--smoke", "--json", "--device", "cpu"]
@@ -724,5 +725,17 @@ def test_cqp_serve_cli_subprocess(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["recovery"]["restarts"] == 1 and len(out["answers_sha256"]) == out["final_queries"] == 4
     assert out["runtime"]["fault"]["history"][1] == "fault@3:InjectedFault"
-    bad = subprocess.run(cmd + ["--optimize", "auto"], capture_output=True, text=True, env=env, timeout=300)
-    assert bad.returncode == 2 and "Queue 1 item 5" in bad.stderr
+    spsp = {}
+    for name, extra in (("auto", ["--optimize", "auto", "--engine", "scratch"]),
+                        ("always", ["--optimize", "always", "--backend", "fused"]),
+                        ("scratch", ["--engine", "scratch"])):
+        run = subprocess.run(cmd + ["--query", "spsp"] + extra, capture_output=True, text=True, env=env,
+                             timeout=300)
+        assert run.returncode == 0, run.stderr
+        spsp[name] = json.loads(run.stdout.strip().splitlines()[-1])
+    assert "planner" not in spsp["scratch"]
+    for name in ("auto", "always"):
+        lmk = spsp[name]["planner"]["landmark"]
+        assert spsp[name]["planner"]["rewrites_total"] == 4 and lmk["live"] and lmk["queries"] == 4
+        assert spsp[name]["aggregates"] == spsp["scratch"]["aggregates"]
+    assert all(a["agg"] == "target" for a in spsp["scratch"]["aggregates"])

@@ -238,10 +238,13 @@ def test_validation_errors_and_unported_pieces(tmp_path):
         TSession(graph, engine="dense", governor=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         TSession(graph, engine="dense", mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TSession(graph, engine="dense", optimize="auto", device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        s.register(tplan.sssp(1, max_iters=MAX_ITERS), optimize="always")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        TSession(graph, engine="dense", mesh=object(), optimize="always", device=CPU)
+    # the plan optimizer runs: a session in auto mode owns a planner, and a
+    # plan no rule matches (no Aggregate) registers into an engine slot
+    assert TSession(graph, engine="dense", optimize="auto", device=CPU)._planner.mode == "auto"
+    h1 = s.register(tplan.sssp(1, max_iters=MAX_ITERS), optimize="always")
+    assert h1.plan.provenance == () and not s._planner.owns(h1.qid) and s._planner.decisions == []
     with pytest.raises(FileNotFoundError):
         TSession.restore(str(tmp_path / "none"), device=CPU)
     s.checkpoint(str(tmp_path / "ckpt"))

@@ -9,6 +9,7 @@ state leaf — D store, J store, ``join_mat``, DroppedVT — every
 ``rtol=1e-6`` (its sums may reassociate, so change points may differ).
 """
 
+import functools
 import importlib.util
 from functools import partial
 from pathlib import Path
@@ -23,7 +24,6 @@ from repro.core import dropping as rdr
 from repro.core import engine as reng
 from repro.core import plan as rplan
 from repro.core import queries as rq
-from repro.core import scratch as rscratch
 from repro.core.graph import DynamicGraph as RGraph
 from repro.core.session import engine_config_for as r_engine_config_for
 from repro_torch.core import access as taccess
@@ -32,6 +32,7 @@ from repro_torch.core import dropping as tdr
 from repro_torch.core import engine as teng
 from repro_torch.core import plan as tplan
 from repro_torch.core import queries as tq
+from repro_torch.core import scratch as tscratch
 from repro_torch.core.graph import DynamicGraph as TGraph
 from repro_torch.core.session import engine_config_for as t_engine_config_for
 from repro_torch.kernels import diff_lookup as K4
@@ -234,7 +235,7 @@ def test_vdc_sweep_leaves_its_input_state_frozen():
     np.testing.assert_equal(convert.engine_state_to_numpy(state), before)
 
 
-# ------------------------------------------------------------ the reference's defect
+# ------------------------------------------------------------ the deletion repair
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_data", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -243,30 +244,67 @@ def _chip_smoke():
     return mod
 
 
-def test_vdc_reproduces_the_reference_under_deletions():
-    """The smallest stream found on which the reference's VDC differs from
-    SCRATCH: V=64, ``uniform_edges(64, 281, default_rng(0))``,
-    ``split_and_stream(edges, 16, 0.5, rng)``, one source, the updates one at
-    a time through ``apply_updates``.  After the 5th update, the delete
-    (32, 63, 0, 2.0, -1), 4 answers of both the reference and the port
-    differ from SCRATCH (ROADMAP Queue 3).  The port keeps the reference's
-    behaviour: it equals it leaf for leaf after every update."""
+def _scratch_answers(port) -> np.ndarray:
+    return tscratch.scratch_like(port.cfg, port.graph, port.state.init, device=CPU).answers()
+
+
+@functools.lru_cache(maxsize=1)
+def _deletion_streams():
+    """Answers of the port, the reference and SCRATCH after every step of the
+    deletion-heavy streams: the pinned one (V=64, ``uniform_edges(64, 281,
+    default_rng(0))``, ``split_and_stream(edges, 16, 0.5, rng)``, one
+    source, one update a step) and 30 seeded ones (V=128, E=700, 4 sources,
+    32 updates at 50% deletes, 4 a step).  One list of (port, ref, scratch)
+    triples per stream."""
     cs = _chip_smoke()
-    rng = np.random.default_rng(0)
-    edges = cs.uniform_edges(64, 281, rng)
-    initial, stream = cs.split_and_stream(edges, 16, 0.5, rng)
-    sources = cs.pick_sources(RGraph(64, initial), 1, rng)
-    ref = rq.sssp(RGraph(64, initial), sources, mode="vdc", max_iters=48)
-    port = tq.sssp(TGraph(64, initial), sources, mode="vdc", max_iters=48, device=CPU)
-    mismatches = []
-    for u in stream:
-        ref.apply_updates([u])
-        port.apply_updates([u])
-        _same_vdc_engine(port, ref)
-        sc = rscratch.scratch_like(ref.cfg, ref.graph, ref.state.init)
-        mismatches.append(int((port.answers() != sc.answers()).sum()))
-    assert stream[4] == (32, 63, 0, 2.0, -1)
-    assert mismatches[4] == 4
+    specs = [(0, 64, 281, 16, 1, 1)] + [(seed, 128, 700, 32, 4, 4) for seed in range(30)]
+    out = []
+    for seed, v, e, n, q, step in specs:
+        rng = np.random.default_rng(seed)
+        edges = cs.uniform_edges(v, e, rng)
+        initial, stream = cs.split_and_stream(edges, n, 0.5, rng)
+        sources = cs.pick_sources(RGraph(v, initial), q, rng)
+        ref = rq.sssp(RGraph(v, initial), sources, mode="vdc", max_iters=48)
+        port = tq.sssp(TGraph(v, initial), sources, mode="vdc", max_iters=48, device=CPU)
+        steps = []
+        for lo in range(0, n, step):
+            ref.apply_updates(stream[lo:lo + step])
+            port.apply_updates(stream[lo:lo + step])
+            steps.append((port.answers(), ref.answers(), _scratch_answers(port)))
+        out.append(steps)
+    return out
+
+
+def test_vdc_equals_scratch_under_deletions():
+    """The J rewrite gate re-checks every out-edge of a vertex scheduled at
+    i-1 (ROADMAP Queue 3): on the pinned stream, where the reference
+    differs from SCRATCH by 4 answers after the 5th update (the delete
+    (32, 63, 0, 2.0, -1)), and on 30 seeded streams, the port equals
+    SCRATCH after every step."""
+    streams = _deletion_streams()
+    assert len(streams) == 31
+    for steps in streams:
+        for port, _ref, sc in steps:
+            np.testing.assert_array_equal(port, sc)
+    assert int((streams[0][4][1] != streams[0][4][2]).sum()) == 4
+
+
+def test_vdc_departs_from_the_reference_only_where_the_reference_is_wrong():
+    """Every answer where the port and the reference differ is one where the
+    reference differs from SCRATCH; a stream on which the reference stays
+    exact gives the port's answers equal to the reference's throughout.
+    The streams are not vacuous: on several the reference is wrong."""
+    wrong_streams = 0
+    for steps in _deletion_streams():
+        ref_wrong = False
+        for port, ref, sc in steps:
+            assert not ((port != ref) & (ref == sc)).any()
+            ref_wrong |= bool((ref != sc).any())
+        if not ref_wrong:
+            for port, ref, _sc in steps:
+                np.testing.assert_array_equal(port, ref)
+        wrong_streams += ref_wrong
+    assert wrong_streams >= 10
 
 
 # ------------------------------------------------------------ access path
