@@ -24,7 +24,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                on aligned copies and on misaligned views; ``bloom_query``
                bit-equal at N tails (0, 1, 3, 5, 4097), M a power of two
                or not, k from 1 to 8 and Q = 9, on aligned copies and on
-               misaligned views;
+               misaligned views; on a shard's rows (the vertex-sharded
+               sweep) ``ell_spmv`` with states wider than its rows and
+               ``fused_sweep`` at a global offset ``off`` != 0, in and out of
+               place and in the ``new=`` form, every drop mode (the offset
+               must move some drop or repair);
                ``diff_lookup`` bit-equal.  ``kernel_small_flash``: K5
                (``flash_attention``) against its plain version at head
                dims 16, 64 and 128 over causal and not, GQA/MQA, ragged
@@ -49,6 +53,14 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                ``ell_spmv``, ``none`` leaf-equal to the ``main`` engine;
                throughput, latency, accounted bytes split into differences
                and DroppedVT, device memory, one profiled chunk.
+   ``main_sharded``  cell patents-uniform-fused-prob-shard4: the Prob-Drop
+               run again on a 4-shard mesh emulated on the one card
+               (``make_data_mesh(4, emulate=True)``): every chunk's
+               ``MaintainStats``, the answers and the Bloom bits equal the
+               unsharded run's, K2 launches 4 × the sweep iterations; the
+               accounted bytes per shard each chunk, the ``ShardIndex``
+               build time, device memory.  Its throughput is the cost of
+               emulating four shards on one card, not a speed of sharding.
    ``main_session``  the session layer at the same size:
                ``CQPSession(engine="dense", backend="fused",
                batch_capacity=32, budget_bytes=B)`` with B 60% of the
@@ -111,6 +123,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                the epoch-view refresh and the executor hop.
 6. ``parity_fused``  ``ell`` against ``fused`` at V = 2**16 for the four
                semirings x three drop modes: every state leaf and stat.
+               ``parity_sharded``: 2 and 4 shards emulated on the card
+               against the unsharded engine at V = 2**16, {coo, ell, fused}
+               x JOD {none, det, prob} and VDC on coo and fused, after every
+               chunk (VDC's ``jwritten`` aside: a reinserted edge's J rows
+               follow its cell), PageRank at rtol 1e-6, and a stream that
+               overflows the fullest shard's cells and the ELL width.
                ``parity_session``: sessions at V = 2**16 whose pools grow
                1 → 16 by single registrations, with a shed, a join flip and
                a deregistration between chunks, on coo/ell/fused (JOD),
@@ -127,8 +145,10 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                answer digests equal across the three, and the backend's
                kernel launched; beside them ``--query spsp --optimize
                always`` on each backend, plain and drill, whose target
-               answers equal a ``--engine scratch`` run's (four chains side
-               by side).
+               answers equal a ``--engine scratch`` run's; on ``fused``
+               ``--mesh data --shards 4 --emulate-devices 4`` plain and
+               drilled, and its checkpoint restored at ``--mesh none``, with
+               the unsharded plain run's digests (five chains side by side).
                ``parity_planner``: ``CQPSession(optimize="always")`` at V =
                2**16 on ``fused``, the card against the port's CPU run on
                the same inputs (pruned fields, ``iters``, ``work`` and the
@@ -569,6 +589,22 @@ def kernel_small(device) -> dict:
                 if not torch.equal(got[:, 1], carry[:, 1]):
                     raise AssertionError(f"{semiring}: a row of padding only moved off its carry")
 
+    # K1 on a shard's rows (the vertex-sharded sweep): states over every
+    # vertex, wider than the rows, neighbour ids up to the full extent
+    cases1w = 0
+    for semiring in K1.SEMIRINGS:
+        cap = 4.0 if semiring == "min_hop" else float("inf")
+        for q, v, d, n_sh in [(3, 100, 8, 4), (8, 333, 24, 2), (8, 300, 101, 4)]:
+            states, nbr, w, carry = ell_inputs(rng, q, v * n_sh, d, semiring, device)
+            nbr, w, carry = nbr[:v].contiguous(), w[:v].contiguous(), carry[:, :v].contiguous()
+            want = K1.ell_spmv_ref(states, nbr, w, carry, semiring=semiring, hop_cap=cap)
+            err1 = max(err1, compare(semiring, K1.ell_spmv(states, nbr, w, carry, semiring=semiring,
+                                                           hop_cap=cap), want))
+            err1 = max(err1, compare(semiring, K1.ell_spmv(states.t().contiguous(), nbr, w, carry,
+                                                           semiring=semiring, hop_cap=cap, transposed=True),
+                                     want))
+            cases1w += 2
+
     # K2: all outputs bit-equal; pr_sum's plain version takes the ELL
     # kernel's expand (the same device code), and that expand is held
     # against the plain sum at rtol 1e-6
@@ -617,6 +653,39 @@ def kernel_small(device) -> dict:
                                         or (mode == "det" and got.det_iters is not kw2["det"].iters)):
                             raise AssertionError("fused_sweep(inplace=True) returned other stores")
                         cases2i += 1
+
+    # K2 on a shard's rows: the block's global offset `off` reaches the coin
+    # and the Bloom key, the expand gathers from states over every vertex;
+    # out of place and in place, expand and new= forms, each drop mode
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    cases2o, moved = 0, 0
+    for q, v, d, s, n_sh in [(3, 100, 8, 16, 4), (2, 257, 16, 16, 2), (8, 300, 24, 16, 4)]:
+        full = v * n_sh
+        for off in (v, (n_sh - 1) * v):
+            for semiring in ("min_plus", "pr_sum"):
+                for mode in K2.DROP_MODES:
+                    args, kw = fused_inputs(rng, q, v, d, s, semiring, mode, device)
+                    wide, _, _, _ = ell_inputs(rng, q, full, d, semiring, device)
+                    kw.update(states=wide, nbr=t(rng.integers(0, full + 1, size=(v, d)).astype(np.int32)))
+                    expand = K1.ell_spmv if semiring == "pr_sum" else K1.ell_spmv_ref
+                    want = K2.fused_sweep_ref(*args, **kw, off=off, expand=expand)
+                    err2 = max(err2, same_fused(K2.fused_sweep(*args, **kw, off=off), want))
+                    work = clone(args[6], torch.clone)
+                    det = {"det": clone(kw["det"], torch.clone)} if mode == "det" else {}
+                    err2 = max(err2, same_fused(K2.fused_sweep(*args[:6], work, args[7], **{**kw, **det},
+                                                               off=off, inplace=True), want))
+                    if semiring == "min_plus":
+                        new = {k: x for k, x in kw.items() if k not in ("states", "nbr", "w", "kcarry")}
+                        new["new"] = want.cur.clone()
+                        err2 = max(err2, same_fused(K2.fused_sweep(*args, **new, off=off),
+                                                    K2.fused_sweep_ref(*args, **new, off=off)))
+                        cases2o += 1
+                    if mode != "none":
+                        at0 = K2.fused_sweep_ref(*args, **kw, expand=expand)
+                        moved += not (torch.equal(at0.to_drop, want.to_drop) and torch.equal(at0.repair, want.repair))
+                    cases2o += 2
+    if not moved:
+        raise AssertionError("fused_sweep: the offset never moved a drop or a repair")
 
     # K2's new= variant (VDC): the candidate comes in, nothing depends on
     # the semiring, so one case per drop mode and shape
@@ -667,8 +736,9 @@ def kernel_small(device) -> dict:
             cases3 += 1
     torch.cuda.synchronize()
     return {
-        "ell_spmv": {"max_abs_err": err1, "semirings": list(K1.SEMIRINGS)},
-        "fused_sweep": {"cases": cases2, "in_place_and_view_cases": cases2i, "bit_equal": True,
+        "ell_spmv": {"max_abs_err": err1, "semirings": list(K1.SEMIRINGS), "wide_states_cases": cases1w},
+        "fused_sweep": {"cases": cases2, "in_place_and_view_cases": cases2i, "offset_cases": cases2o,
+                        "offset_moved_drops": moved, "bit_equal": True,
                         "max_abs_err": err2, "pr_sum_expand_max_abs_err": expand_err},
         "fused_sweep_new": {"cases": cases2n, "bit_equal": True, "max_abs_err": err2n},
         "diff_lookup": {"cases": cases4, "bit_equal": True, "max_abs_err": err4},
@@ -780,9 +850,9 @@ def make_data(num_vertices: int, num_edges: int, num_updates: int, chunk: int, n
 
 def nbytes_split(eng) -> list[int]:
     """``nbytes()`` and its parts: [D-store bytes, J-store bytes, DroppedVT
-    bytes, total]."""
-    diff = int(eng.state.dstore.count.sum()) * 8
-    join = 0 if eng.state.jstore is None else int(eng.state.jstore.count.sum()) * 8
+    bytes, total], summed over the shards of a sharded engine."""
+    diff = sum(int(st.dstore.count.sum()) for st in eng.states) * 8
+    join = sum(0 if st.jstore is None else int(st.jstore.count.sum()) for st in eng.states) * 8
     total = eng.nbytes()
     return [diff, join, total - diff - join, total]
 
@@ -826,9 +896,17 @@ class Capture:
         return self.fn(i, *args, **kw)
 
 
+def engine_init(eng):
+    """The engine's D_0 rows over every vertex (a sharded engine's blocks
+    concatenated, without assembling its whole state)."""
+    import torch
+
+    return torch.cat([st.init for st in eng.states], dim=1)
+
+
 def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int, chunk: int,
                counters, drop=None, mode: str = "jod", profile_path: Path | None = None,
-               capture: Capture | None = None):
+               capture: Capture | None = None, mesh=None):
     """Drive ``queries.sssp`` on ``graph`` (mutated) through
     ``apply_updates_batched`` and hold the answers against SCRATCH: equal
     bit for bit, JOD and VDC alike (VDC's answers that differ are counted
@@ -853,7 +931,8 @@ def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int
         at_start = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         eng = tq.sssp(graph, sources, backend=backend, drop=drop, mode=mode, max_iters=48,
-                      batch_capacity=chunk, store_capacity=16, device=device)
+                      batch_capacity=chunk, store_capacity=16, mesh=mesh,
+                      device=None if mesh is not None else device)
         init_s = time.perf_counter() - t0
         init_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()  # the chunks' own peak from here
@@ -868,16 +947,16 @@ def run_stream(graph, sources, stream, *, device, backend: str, num_updates: int
                max_memory_allocated=max(init_peak, out["max_memory_allocated"]))
     if mode == "vdc":
         out["jstore_evictions"] = 0 if tap.total is None else int(tap.total)
-        out["jstore_rows_full"] = int((eng.state.jstore.count >= eng.cfg.jstore_capacity).sum())
+        out["jstore_rows_full"] = sum(int((st.jstore.count >= eng.cfg.jstore_capacity).sum()) for st in eng.states)
         out["jstore_capacity"] = eng.cfg.jstore_capacity
-        out["jstore_rows"] = int(eng.state.jstore.count.numel())
+        out["jstore_rows"] = sum(int(st.jstore.count.numel()) for st in eng.states)
 
     ans = eng.answers()
     if ans.shape != (len(sources), graph.num_vertices) or np.isnan(ans).any():
         raise AssertionError(f"bad answers: shape {ans.shape}")
     if not all(ans[q, s] == 0.0 for q, s in enumerate(sources)):
         raise AssertionError("a source is not at distance 0")
-    want = scratch_like(eng.cfg, eng.graph, eng.state.init, device=device).answers()
+    want = scratch_like(eng.cfg, eng.graph, engine_init(eng), device=device).answers()
     bad = np.argwhere(ans != want)
     if mode == "vdc":
         out["scratch_mismatches"] = int(bad.shape[0])
@@ -906,6 +985,7 @@ def drive_chunks(eng, stream, *, num_updates: int, chunk: int, counters, profile
     chunk_stats = [stats_row(eng.last_stats)]
     lat, iters = [], []
     peak = nbytes_split(eng)
+    per_device = [eng.nbytes_per_device()] if eng.num_shards > 1 else None
     n_chunks = num_updates // chunk
     sweeps_peak = 0
     for c, lo in enumerate(range(0, num_updates, chunk)):
@@ -926,6 +1006,8 @@ def drive_chunks(eng, stream, *, num_updates: int, chunk: int, counters, profile
         for k in totals:
             totals[k] += int(getattr(st, k))
         peak = [max(a, b) for a, b in zip(peak, nbytes_split(eng))]
+        if per_device is not None:
+            per_device.append(eng.nbytes_per_device())
     launches = {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in counters}  # ---- and ends here
 
     traced = {}
@@ -966,6 +1048,7 @@ def drive_chunks(eng, stream, *, num_updates: int, chunk: int, counters, profile
         "max_memory_allocated_sweeps": sweeps_peak,
         "traced_chunk": traced,
         "chunk_stats": chunk_stats,
+        **({} if per_device is None else {"nbytes_per_device_per_chunk": per_device}),
     }
 
 
@@ -1343,7 +1426,7 @@ def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
             profile_path=OUT_DIR / f"chip_smoke_fused_{mode}_chunk_trace.json",
         )
         out["graph_copy_s"] = copy_s
-        del out["chunk_stats"]
+        chunk_stats = out.pop("chunk_stats")
         iters_run = out["init_sweep_iters"] + sum(out["sweep_iters_per_chunk"])
         if out["launches"]["fused_sweep"] != iters_run:
             raise AssertionError(f"{mode}: {out['launches']['fused_sweep']} fused_sweep launches "
@@ -1360,6 +1443,9 @@ def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
             bits = flt.bits.cpu()
             real["bloom_filter"] = (bits, flt.num_hashes, int(eng.state.drop.max_iter), eng.cfg.num_vertices)
             out["bloom_fill_fraction"] = [float(x) for x in bits.sum(dim=-1) / bits.shape[-1]]
+            # what main_sharded must reproduce bit for bit
+            real["prob_run"] = {"answers": eng.answers(), "bits": bits, "chunk_stats": chunk_stats,
+                                "policy": drop_policy(mode, 1 << 26)}
             del flt, bits
         if mode == "det":
             real["diff_lookup_det"] = det_lookup_real(eng)
@@ -1374,6 +1460,202 @@ def main_fused(graph0, sources, stream, ell_leaves, *, device, num_updates: int,
         del capture
         torch.cuda.empty_cache()
     return runs, real
+
+
+MAIN_SHARDS = 4  # main_sharded's mesh: shards emulated on the one card
+
+
+def first_stats_difference(got: list, want: list) -> str | None:
+    """Where two runs' per-chunk ``MaintainStats`` rows first part."""
+    from repro_torch.core.engine import MaintainStats
+
+    if len(got) != len(want):
+        return f"{len(got)} chunks against {len(want)}"
+    for c, (g, w) in enumerate(zip(got, want)):
+        for f, a, b in zip(MaintainStats._fields, g, w):
+            if a != b:
+                return f"chunk {c}: {f} {a} against {b}"
+    return None
+
+
+def main_sharded(graph0, sources, stream, prob_run: dict, *, device, num_updates: int, chunk: int) -> dict:
+    """Cell patents-uniform-fused-prob-shard4: ``main_fused`` prob's graph,
+    sources, stream and policy on a 4-shard mesh emulated on the one card
+    (``make_data_mesh(4, emulate=True)``).  Every chunk's ``MaintainStats``,
+    the final answers and the Bloom bits must equal the unsharded run's bit
+    for bit (and the answers SCRATCH's, as ``run_stream`` checks); K2
+    launches once a shard an iteration.  Its updates/s and chunk latencies
+    are the cost of emulation — four shards' work and the collectives on
+    one card — not a speed of sharding."""
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh = make_data_mesh(MAIN_SHARDS, device=device, emulate=True)
+    index_cls, built = E.ShardIndex, []
+
+    def timed_index(*args, **kw):  # the engine's ShardIndex builds, timed
+        t0 = time.perf_counter()
+        index = index_cls(*args, **kw)
+        built.append(time.perf_counter() - t0)
+        return index
+
+    E.ShardIndex = timed_index
+    try:
+        out, eng = run_stream(
+            copy_graph(graph0), sources, stream, device=device, backend="fused", drop=prob_run["policy"],
+            num_updates=num_updates, chunk=chunk, counters=(K1, K2, K3, K4), mesh=mesh,
+            profile_path=OUT_DIR / "chip_smoke_sharded_prob_chunk_trace.json",
+        )
+    finally:
+        E.ShardIndex = index_cls
+    chunk_stats = out.pop("chunk_stats")
+    part = first_stats_difference(chunk_stats, prob_run["chunk_stats"])
+    if part is not None:
+        raise AssertionError(f"main_sharded: MaintainStats part from main_fused prob's at {part}")
+    if not np.array_equal(eng.answers(), prob_run["answers"]):
+        raise AssertionError("main_sharded: answers differ from main_fused prob's")
+    bits = [st.drop.flt.bits for st in eng.states]
+    if not all(torch.equal(b.cpu(), prob_run["bits"]) for b in {id(b): b for b in bits}.values()):
+        raise AssertionError("main_sharded: Bloom bits differ from main_fused prob's")
+    iters_run = out["init_sweep_iters"] + sum(out["sweep_iters_per_chunk"])
+    if out["launches"]["fused_sweep"] != MAIN_SHARDS * iters_run:
+        raise AssertionError(f"main_sharded: {out['launches']['fused_sweep']} fused_sweep launches for "
+                             f"{iters_run} sweep iterations on {MAIN_SHARDS} shards")
+    per_device = out["nbytes_per_device_per_chunk"]
+    final = eng.nbytes_per_device()
+    if sum(final) != eng.nbytes() or len(final) != MAIN_SHARDS:
+        raise AssertionError(f"main_sharded: per-shard bytes {final} do not sum to {eng.nbytes()}")
+    out.update(
+        shards=MAIN_SHARDS, emulated=True, equals_main_fused_prob=True,
+        shard_index_build_s=built, shard_capacity=eng._shard_index.shard_capacity,
+        nbytes_per_device_final=final,
+        shard_share_of_bytes=[[b / max(sum(row), 1) for b in row] for row in per_device],
+        note="updates/s and chunk latency are the cost of emulating 4 shards on one card",
+    )
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_sharded(device, num_vertices: int = 1 << 16) -> dict:
+    """The vertex-sharded sweep at V = 2**16 on 2 and 4 shards emulated on
+    the card, against the unsharded engine on the card: {coo, ell, fused}
+    x JOD {none, det, prob}, and VDC on coo and fused, through a batched
+    stream.  After every chunk every ``MaintainStats`` field equals (VDC:
+    all but ``jwritten``, the J writes counted against rows a reinserted
+    edge inherits from its cell, which the shard layout's free lists pick
+    apart from the graph's), and at the end the answers, the global D
+    store, the Det rows, the Bloom bits and the selection rows; the
+    per-shard bytes sum to ``nbytes()``.  Then one PageRank case at rtol
+    1e-6, and a stream that overflows the fullest shard's cells (the layout
+    regrows, VDC's J rows follow their edges) and the ELL width."""
+    import torch
+
+    from repro_torch.core import queries as tq
+    from repro_torch.core.graph import DynamicGraph, ShardIndex
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
+    from repro_torch.launch.mesh import make_data_mesh
+
+    for K in (K1, K2, K3, K4):
+        K.reset_launches()
+    rng = np.random.default_rng(SEED + 7)
+    num_edges = round(num_vertices * PATENTS_E / PATENTS_V)
+    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), 96, 0.2, rng)
+    sources = pick_sources(DynamicGraph(num_vertices, initial), 8, rng)
+    meshes = {n: make_data_mesh(n, device=device, emulate=True) for n in (2, 4)}
+
+    def build(n, graph, query="sssp", **kw):
+        mesh = meshes.get(n)
+        dev = None if mesh is not None else device
+        if query == "pagerank":
+            return tq.pagerank(graph, iters=10, batch_capacity=32, mesh=mesh, device=dev, **kw)
+        return tq.sssp(graph, sources, max_iters=48, batch_capacity=32, mesh=mesh, device=dev, **kw)
+
+    def leaves(eng, mode):
+        got = (vdc_leaves if mode == "vdc" else state_leaves)(eng.state)
+        return {k: x for k, x in got.items() if not k.startswith("jstore/")}
+
+    def check(engines, log, what, mode, chunk=32):
+        for lo in range(0, len(log), chunk):
+            stats = {n: e.apply_updates_batched(log[lo : lo + chunk]) for n, e in engines.items()}
+            for n in (2, 4):
+                for f in stats[1]._fields:
+                    if f == "jwritten" and mode == "vdc":
+                        continue
+                    if not np.array_equal(getattr(stats[n], f), getattr(stats[1], f)):
+                        raise AssertionError(f"{what} at {n} shards: MaintainStats.{f} differs")
+        want = leaves(engines[1], mode)
+        for n in (2, 4):
+            same_leaves(leaves(engines[n], mode), want, f"{what} at {n} shards")
+            if not np.array_equal(engines[n].answers(), engines[1].answers()):
+                raise AssertionError(f"{what} at {n} shards: answers differ")
+            per = engines[n].nbytes_per_device()
+            if len(per) != n or sum(per) != engines[n].nbytes():
+                raise AssertionError(f"{what} at {n} shards: per-shard bytes {per} != {engines[n].nbytes()}")
+            if mode == "jod" and engines[n].nbytes() != engines[1].nbytes():
+                raise AssertionError(f"{what} at {n} shards: accounted bytes differ")
+
+    cells = {}
+    matrix = [(b, "jod", d) for b in ("coo", "ell", "fused") for d in ("none", "det", "prob")]
+    matrix += [("coo", "vdc", "none"), ("fused", "vdc", "none")]
+    for backend, mode, dmode in matrix:
+        engines = {n: build(n, DynamicGraph(num_vertices, initial), backend=backend, mode=mode,
+                            drop=drop_policy(dmode, 1 << 20)) for n in (1, 2, 4)}
+        what = f"{backend}/{mode}/{dmode}"
+        check(engines, stream, what, mode)
+        cells[what] = {"equal": True, "nbytes": engines[1].nbytes(),
+                       "nbytes_per_device": {n: engines[n].nbytes_per_device() for n in (2, 4)}}
+        del engines
+
+    pr = {n: build(n, DynamicGraph(num_vertices, initial), query="pagerank", backend="fused") for n in (1, 2, 4)}
+    for lo in range(0, len(stream), 32):
+        for e in pr.values():
+            e.apply_updates_batched(stream[lo : lo + 32])
+    pr_err = 0.0
+    for n in (2, 4):
+        a, b = pr[n].answers(), pr[1].answers()
+        if not np.allclose(a, b, rtol=1e-6, atol=0.0):
+            raise AssertionError(f"pagerank at {n} shards: answers differ beyond rtol 1e-6")
+        pr_err = max(pr_err, float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))))
+    cells["pagerank/fused"] = {"rtol_1e-6": True, "max_rel_err": pr_err}
+    del pr
+
+    # overflow: the graph's capacity tight, the hub into the fullest shard
+    # of 4 with more edges than its spare cells and than the ELL width
+    cap = len(initial) + 1024
+    tight = DynamicGraph(num_vertices, initial, capacity=cap)
+    index = ShardIndex(tight.snapshot(), 4)
+    fullest = int(np.argmax(index.fill))
+    spare = index.shard_capacity - int(index.fill[fullest])
+    hub = fullest * (num_vertices // 4) + 1
+    srcs = [u for u in rng.permutation(num_vertices).tolist() if u != hub][: spare + 40]
+    hub_log = [(u, hub, 0, 1.0, +1) for u in srcs] + list(stream[:64])
+    grow = {}
+    for backend, mode, dmode in (("fused", "jod", "det"), ("ell", "jod", "none"), ("coo", "vdc", "none")):
+        engines = {n: build(n, DynamicGraph(num_vertices, initial, capacity=cap), backend=backend, mode=mode,
+                            drop=drop_policy(dmode, 1 << 20)) for n in (1, 2, 4)}
+        before = {n: (engines[n]._shard_index.shard_capacity, engines[n]._ell_width) for n in (2, 4)}
+        what = f"overflow {backend}/{mode}/{dmode}"
+        check(engines, hub_log, what, mode)
+        after = {n: (engines[n]._shard_index.shard_capacity, engines[n]._ell_width) for n in (2, 4)}
+        if after[4][0] <= before[4][0] or (backend != "coo" and after[4][1] <= before[4][1]):
+            raise AssertionError(f"{what}: no regrow ({before[4]} -> {after[4]})")
+        grow[what] = {"shard_capacity": [before[4][0], after[4][0]], "ell_width": [before[4][1], after[4][1]],
+                      "equal": True}
+        del engines
+    torch.cuda.synchronize()
+    return {"num_vertices": num_vertices, "num_edges_initial": int(initial.shape[0]), "shards": [2, 4],
+            "cells": cells, "overflow": grow, "hub_inserts": len(srcs),
+            "launches": {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in (K1, K2, K3, K4)}}
 
 
 def det_lookup_real(eng) -> dict:
@@ -1692,8 +1974,8 @@ def serve_run(graph0, stream, sources, *, device, chunk: int, num_updates: int, 
     it checkpoints every 2 chunks and takes one ``InjectedFault`` before
     chunk ``SERVE_FAULT_AT``.  Launch counts are zeroed just before the
     serving session is built and read after the server stops; every sweep's
-    iterations are summed (``engine.maintain`` wrapped), registrations and
-    replays included.  Returns the measurements, the last reads and the
+    iterations are summed (``engine._sweep``, the loop every sweep runs,
+    wrapped), registrations and replays included.  Returns the measurements, the last reads and the
     final session."""
     import asyncio
     import shutil
@@ -1735,12 +2017,12 @@ def serve_run(graph0, stream, sources, *, device, chunk: int, num_updates: int, 
             raise InjectedFault(f"main_serve drill before chunk {k}")
 
     iters: list[int] = []
-    real_maintain = E.maintain
+    real_sweep = E._sweep
 
-    def counted_maintain(*args):
-        state, stats = real_maintain(*args)
+    def counted_sweep(*args):
+        states, stats = real_sweep(*args)
         iters.append(int(stats.iters_run))
-        return state, stats
+        return states, stats
 
     tenants = {"tenant0": sources[0:3], "tenant1": sources[3:6], "tenant2": sources[6:8]}
     rounds = num_updates // chunk
@@ -1836,7 +2118,7 @@ def serve_run(graph0, stream, sources, *, device, chunk: int, num_updates: int, 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out["memory_allocated_at_start"] = torch.cuda.memory_allocated()
-    E.maintain = counted_maintain
+    E._sweep = counted_sweep
     try:
         for K in counters:
             K.reset_launches()  # ---- the main path starts here
@@ -1845,7 +2127,7 @@ def serve_run(graph0, stream, sources, *, device, chunk: int, num_updates: int, 
         out["wall_s"] = time.perf_counter() - t0
         launches = {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in counters}  # ---- and ends here
     finally:
-        E.maintain = real_maintain
+        E._sweep = real_sweep
         if ckpt_dir is not None:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.synchronize()
@@ -2211,8 +2493,11 @@ def cqp_serve_drill() -> dict:
     Then ``--query spsp --optimize always``, plain and drilled (equal
     digests; the landmark index live, the backend's kernel launched for its
     forward rows), and ``--query spsp --engine scratch``: the target answers
-    of the three are equal.  Four chains (SSSP and SPSP on each backend)
-    run side by side, each process to its end."""
+    of the three are equal.  On ``fused``, the vertex-sharded sweep: ``--mesh
+    data --shards 4 --emulate-devices 4`` plain and drilled, then a
+    ``--restore`` of its 4-shard checkpoint at ``--mesh none``: every digest
+    equal to the unsharded plain run's.  Five chains run side by side, each
+    process to its end."""
     import os
     import shutil
 
@@ -2220,6 +2505,7 @@ def cqp_serve_drill() -> dict:
     base = [sys.executable, "-m", "repro_torch.launch.cqp_serve", "--json"]
     drill = ["--checkpoint-every", "2", "--inject-fault-at", "3"]
     spsp = ["--query", "spsp", "--optimize", "always"]
+    sharded = ["--mesh", "data", "--shards", "4", "--emulate-devices", "4"]
 
     def chain(job: tuple[str, str]) -> dict:
         backend, query = job
@@ -2230,7 +2516,10 @@ def cqp_serve_drill() -> dict:
                           ("restore", ["--checkpoint-dir", str(d), "--restore"])),
                  "spsp": (("spsp", spsp),
                           ("spsp_drill", spsp + ["--checkpoint-dir", str(d)] + drill),
-                          ("spsp_scratch", ["--query", "spsp", "--engine", "scratch"]))}[query]
+                          ("spsp_scratch", ["--query", "spsp", "--engine", "scratch"])),
+                 "sharded": (("sharded", sharded),
+                             ("sharded_drill", sharded + ["--checkpoint-dir", str(d)] + drill),
+                             ("sharded_restore", ["--checkpoint-dir", str(d), "--restore"]))}[query]
         runs = {}
         try:
             for name, extra in steps:
@@ -2243,7 +2532,7 @@ def cqp_serve_drill() -> dict:
                 res = json.loads(proc.stdout.strip().splitlines()[-1])
                 runs[name] = {"wall_s": time.perf_counter() - t0, **{k: res[k] for k in (
                     "updates_per_sec", "p50_ms", "p99_ms", "nbytes_per_query", "answers_sha256",
-                    "kernel_launches")}}
+                    "kernel_launches", "shards", "nbytes_per_device", "peak_diff_bytes_per_device")}}
                 if query == "spsp":
                     runs[name]["targets"] = [a["value"] for a in res["aggregates"]]
                     if "planner" in res:
@@ -2255,12 +2544,18 @@ def cqp_serve_drill() -> dict:
         finally:
             shutil.rmtree(d, ignore_errors=True)
         kernel = "fused_sweep" if backend == "fused" else "ell_spmv"
-        first, drilled = ("plain", "drill") if query == "sssp" else ("spsp", "spsp_drill")
+        first, drilled = {"sssp": ("plain", "drill"), "spsp": ("spsp", "spsp_drill"),
+                          "sharded": ("sharded", "sharded_drill")}[query]
         for name in (first, drilled):
             if runs[name]["kernel_launches"][kernel] == 0:
                 raise AssertionError(f"cqp_serve {backend} {name} launched no {kernel}")
         if "fault@3:InjectedFault" not in runs[drilled]["recovery"]["history"]:
             raise AssertionError(f"cqp_serve {backend} {drilled} history {runs[drilled]['recovery']['history']}")
+        if query == "sharded":
+            for name in (first, drilled):
+                if runs[name]["shards"] != 4 or len(runs[name]["nbytes_per_device"]) != 4:
+                    raise AssertionError(f"cqp_serve {name}: {runs[name]['shards']} shards")
+            return runs
         if query == "sssp":
             for name in ("drill", "restore"):
                 for key in ("nbytes_per_query", "answers_sha256"):
@@ -2278,12 +2573,18 @@ def cqp_serve_drill() -> dict:
         return runs
 
     t0 = time.perf_counter()
-    jobs = [(b, q) for b in ("fused", "ell") for q in ("sssp", "spsp")]
+    jobs = [(b, q) for b in ("fused", "ell") for q in ("sssp", "spsp")] + [("fused", "sharded")]
     with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
         done = dict(zip(jobs, ex.map(chain, jobs)))
+    plain = done[("fused", "sssp")]["plain"]
+    for name, run in done[("fused", "sharded")].items():
+        for key in ("nbytes_per_query", "answers_sha256"):
+            if run[key] != plain[key]:
+                raise AssertionError(f"cqp_serve fused {name}: {key} differs from the unsharded plain run")
     return {"args": "--v 512 --e 2048 --queries 8 --updates 256 --batch 32 (the CLI defaults)",
             "seconds": time.perf_counter() - t0, "equal": True,
-            **{b: {**done[(b, "sssp")], **done[(b, "spsp")]} for b in ("fused", "ell")}}
+            **{b: {**done[(b, "sssp")], **done[(b, "spsp")]} for b in ("fused", "ell")},
+            "fused_sharded": done[("fused", "sharded")]}
 
 
 def parity_session(device, num_vertices: int = 1 << 16) -> dict:
@@ -3185,6 +3486,10 @@ def main() -> None:
     runs, real = main_fused(graph0, qsources, stream, ell_leaves, device=dev,
                             num_updates=num_updates, chunk=chunk)
     del ell_leaves
+    sharded_out = main_sharded(graph0, qsources, stream, real.pop("prob_run"), device=dev,
+                               num_updates=num_updates, chunk=chunk)
+    emit("main_sharded", cell="patents-uniform-fused-prob-shard4", num_vertices=graph0.num_vertices,
+         queries=len(qsources), chunk=chunk, **sharded_out)
     vdc_runs, vdc_real = main_vdc(graph0, qsources, stream, main_out["peak_nbytes"], device=dev,
                                   num_updates=num_updates, chunk=chunk)
     session_out = main_session(graph0, stream, qsources, runs["none"], runs["det"], device=dev,
@@ -3198,6 +3503,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     emit("parity_fused", **parity_fused(dev))
+    parity_sh = parity_sharded(dev)
+    emit("parity_sharded", **parity_sh)
     emit("parity_vdc", **parity_vdc(dev))
     emit("parity_session", **parity_session(dev))
     emit("parity_planner", **parity_planner(dev))
@@ -3240,13 +3547,14 @@ def main() -> None:
     k4 = vdc_real["diff_lookup"]
     # launches over every main-path run: the ell engine, the three fused
     # ones, the two VDC ones, the governed session, the two server runs, the
-    # landmark session and the twelve cqp_serve processes of the drill
+    # landmark session, the sharded run and its parity phase, and the
+    # fifteen cqp_serve processes of the drill
     all_runs = {"ell": main_out, **{f"fused_{m}": r for m, r in runs.items()},
                 **{f"vdc_{b}": r for b, r in vdc_runs.items()}, "session": session_out,
                 "serve": serve_out["fault_run"], "serve_clean": serve_out["clean_run"],
-                "landmark": landmark_out,
+                "landmark": landmark_out, "sharded": sharded_out, "parity_sharded": parity_sh,
                 **{f"cqp_serve_{b}_{n}": {"launches": r["kernel_launches"]}
-                   for b in ("fused", "ell") for n, r in drill[b].items()}}
+                   for b in ("fused", "ell", "fused_sharded") for n, r in drill[b].items()}}
     launches = {k: sum(r["launches"][k] for r in all_runs.values())
                 for k in ("ell_spmv", "fused_sweep", "bloom", "diff_lookup")}
     # K5 over the LM runs, each counted from 0: prefill + decode, lm_serve,
@@ -3286,6 +3594,7 @@ def main() -> None:
             "out_of_place_floor_ms": k2["out_of_place_floor_ms"],
             "library_ms": None,
             "drop_mode": "none",
+            "offset": "the coin and the Bloom key hash v + off (the shard's first vertex)",
             "launches_by_run": {k: r["launches"]["fused_sweep"] for k, r in all_runs.items()},
             "by_drop_mode": {m: real[m] for m in ("none", "det", "prob")},
             "new_variant": {k: k2n[k] for k in ("max_abs_err", "ms", "out_of_place_ms", "plain_ms",

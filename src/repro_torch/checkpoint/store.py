@@ -32,10 +32,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import Sharding
+
 Pytree = Any
-
-SHARDED = "the vertex-sharded slice of the port (ROADMAP Queue 1 item 4)"
-
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
@@ -186,11 +185,11 @@ def restore_checkpoint(directory: str, target_tree: Pytree, step: int | None = N
     Every target leaf is validated against the manifest (presence, shape,
     dtype), so a mismatched tree fails with a named error.  A tensor leaf
     of the target comes back as a tensor on that leaf's device; any other
-    leaf as a numpy array.  ``shardings`` (a reshard onto a device mesh)
-    raises :class:`NotImplementedError`.
+    leaf as a numpy array.  ``shardings``, a tree of the target's structure
+    with a :class:`~repro_torch.launch.mesh.Sharding` at every leaf, places
+    the restored leaves onto a mesh instead: each comes back as the list of
+    its shards' tensors (split along the sharding's axis, or replicated).
     """
-    if shardings is not None:
-        raise NotImplementedError(f"restoring onto shardings is not ported yet: it comes with {SHARDED}")
     d, step = _step_dir(directory, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -202,6 +201,11 @@ def restore_checkpoint(directory: str, target_tree: Pytree, step: int | None = N
             if isinstance(target, torch.Tensor):
                 arr = torch.from_numpy(arr).to(target.device)
             leaves.append(arr)
+    if shardings is not None:
+        specs = [s for _, s in _flatten(shardings)]
+        if len(specs) != len(leaves) or not all(isinstance(s, Sharding) for s in specs):
+            raise ValueError("shardings must match the target tree with a Sharding at every leaf")
+        leaves = [s.place(x) for x, s in zip(leaves, specs)]
     return _unflatten(target_tree, iter(leaves)), step
 
 

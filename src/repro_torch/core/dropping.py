@@ -202,7 +202,7 @@ def select_to_drop(params: DropParams, degree: Tensor, q, v, i) -> Tensor:
 
 
 def select_stored_to_drop(
-    params: DropParams, degree: Tensor, iters: Tensor, imax: int, q_ids=None
+    params: DropParams, degree: Tensor, iters: Tensor, imax: int, q_ids=None, v_offset: int = 0
 ) -> Tensor:
     """Which *stored* change points to shed under the current params. [Q,V,S]
 
@@ -213,10 +213,12 @@ def select_stored_to_drop(
     diff-store iteration tensor; entries padded with ``imax`` never select.
     ``q_ids`` are the query slots of ``iters``' rows (default: 0..Q-1), so
     one slot's row, with its row of ``params``, is audited alone.
+    ``v_offset`` is the global id of ``iters``' first vertex (a shard's
+    block): the coin sees global ids.
     """
     q, v, s = iters.shape
     dev = iters.device
-    v_ids = torch.arange(v, dtype=torch.int32, device=dev)[None, :, None].expand(q, v, s)
+    v_ids = (v_offset + torch.arange(v, dtype=torch.int32, device=dev))[None, :, None].expand(q, v, s)
     deg = degree.to(torch.float32)[None, :, None].expand(q, v, s)
     if q_ids is None:
         q_ids = torch.arange(q, dtype=torch.int32, device=dev)
@@ -227,12 +229,14 @@ def select_stored_to_drop(
     return sel.reshape(q, v, s) & (iters < imax)
 
 
-def register(state: DropState, i, mask: Tensor) -> DropState:
+def register(state: DropState, i, mask: Tensor, v_offset: int = 0) -> DropState:
     """Record dropped VT pairs (v, i) where ``mask`` [Q, V].
 
     ``i`` is a scalar iteration or a per-(q, v) int32 tensor (evictions drop
     each row's own oldest iteration).  The Bloom key is the vertex id and
-    the iteration, salted by the query slot index.
+    the iteration, salted by the query slot index.  ``v_offset`` maps the
+    mask's vertex axis to global ids (a shard registers its own block,
+    hashed by global id, so the bits do not depend on the sharding).
     """
     hi = torch.where(mask, torch.as_tensor(i, dtype=torch.int32, device=mask.device), -1).max()
     max_iter = torch.maximum(state.max_iter, hi)
@@ -243,19 +247,20 @@ def register(state: DropState, i, mask: Tensor) -> DropState:
         return state._replace(det=det, det_overflow=overflow, max_iter=max_iter)
     if state.flt is not None:
         qn, vn = mask.shape
-        v_ids = torch.arange(vn, dtype=torch.int32, device=mask.device)[None, :]
+        v_ids = (v_offset + torch.arange(vn, dtype=torch.int32, device=mask.device))[None, :]
         salt = torch.arange(qn, dtype=torch.int32, device=mask.device)[:, None]
         flt = bloom_lib.insert(state.flt, v_ids, i, mask, salt=salt)
         return state._replace(flt=flt, max_iter=max_iter)
     return state
 
 
-def register_(state: DropState, i, mask: Tensor, q_offset: int = 0) -> DropState:
+def register_(state: DropState, i, mask: Tensor, q_offset: int = 0, v_offset: int = 0) -> DropState:
     """:func:`register` written into the Det store (only its marked rows,
     :func:`diffstore.upsert_rows_`) or the Bloom bits in place; returns the
     state with ``det_overflow`` and ``max_iter`` advanced.  ``q_offset`` is
     the query slot of ``mask``'s first row (the Bloom salt), so a view of
-    one slot's rows registers as that slot."""
+    one slot's rows registers as that slot; ``v_offset`` as for
+    :func:`register`."""
     hi = torch.where(mask, torch.as_tensor(i, dtype=torch.int32, device=mask.device), -1).max()
     state = state._replace(max_iter=torch.maximum(state.max_iter, hi))
     if state.det is not None:
@@ -264,7 +269,7 @@ def register_(state: DropState, i, mask: Tensor, q_offset: int = 0) -> DropState
         return state._replace(det_overflow=state.det_overflow + evicted)
     if state.flt is not None:
         qn, vn = mask.shape
-        v_ids = torch.arange(vn, dtype=torch.int32, device=mask.device)[None, :]
+        v_ids = (v_offset + torch.arange(vn, dtype=torch.int32, device=mask.device))[None, :]
         salt = q_offset + torch.arange(qn, dtype=torch.int32, device=mask.device)[:, None]
         bloom_lib.insert_(state.flt, v_ids, i, mask, salt=salt)
     return state
@@ -278,14 +283,18 @@ def unregister(state: DropState, i, mask: Tensor) -> DropState:
     return state
 
 
-def dropped_at(state: DropState, i: int, num_vertices: int) -> Tensor:
-    """Mask [Q, V]: was a diff for (v, i) dropped? (Prob: may false-positive.)"""
+def dropped_at(state: DropState, i: int, num_vertices: int, v_offset: int = 0) -> Tensor:
+    """Mask [Q, V]: was a diff for (v, i) dropped? (Prob: may false-positive.)
+
+    ``num_vertices`` is the extent of the (possibly shard-local) vertex
+    axis; ``v_offset`` shifts it to global ids for the Bloom probe.
+    """
     if state.det is not None:
         return ds.has_at(state.det, i)
     if state.flt is not None:
         qn = state.flt.bits.shape[0]
         dev = state.flt.bits.device
-        v_ids = torch.arange(num_vertices, dtype=torch.int32, device=dev)[None, :]
+        v_ids = (v_offset + torch.arange(num_vertices, dtype=torch.int32, device=dev))[None, :]
         salt = torch.arange(qn, dtype=torch.int32, device=dev)[:, None]
         return bloom_lib.query(state.flt, v_ids, i, salt=salt)
     raise ValueError("dropped_at called with dropping disabled")

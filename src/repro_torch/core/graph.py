@@ -363,6 +363,130 @@ class EllIndex:
         return list(writes.values())
 
 
+@dataclasses.dataclass
+class ShardWrite:
+    """One sharded edge-cell assignment at linear index ``lin``
+    (= shard · shard_capacity + position within the shard's cell range)."""
+
+    lin: int
+    src: int
+    dst: int
+    weight: float
+    valid: bool
+
+
+class ShardOverflow(Exception):
+    """A destination shard ran out of edge cells — rebuild at a larger
+    per-shard capacity (the index is stale once this is raised)."""
+
+
+class ShardIndex:
+    """Host mirror of the vertex-sharded edge layout (the mesh's data axis).
+
+    Shard ``k`` of ``n`` owns the vertex block ``[k·V/n, (k+1)·V/n)`` and
+    every edge whose DESTINATION falls in it, laid out in the cell range
+    ``[k·C, (k+1)·C)`` (``C`` = ``shard_capacity``): a fresh index fills
+    each shard's cells in ascending slot order.  A δE chunk becomes one
+    scatter into the owning shards.  Deleted cells keep their endpoints (the
+    VDC J store's identity-overwrite rule needs a deleted edge's old
+    destination) and return to their shard's free list.
+
+    ``cell_of`` is indexed by edge slot (``-1``: no live cell), where the
+    reference keeps a dict; the build is one stable sort by shard.
+    """
+
+    def __init__(self, snap: GraphSnapshot, num_shards: int, *, min_capacity: int = 0) -> None:
+        v, n = snap.num_vertices, int(num_shards)
+        if v % n:
+            raise ValueError(f"num_vertices {v} not divisible by {n} shards")
+        self.num_shards = n
+        self.vertices_per_shard = v // n
+        live = np.nonzero(snap.valid)[0]
+        shard = snap.dst[live].astype(np.int64) // self.vertices_per_shard
+        counts = np.bincount(shard, minlength=n)
+        cap = max(
+            int(counts.max(initial=0)),
+            -(-snap.capacity // n),  # even spread of the host capacity
+            int(min_capacity),
+            8,
+        )
+        self.shard_capacity = -(-cap // 8) * 8
+        order = np.argsort(shard, kind="stable")  # stable: slot order within a shard
+        start = np.cumsum(counts) - counts
+        pos = np.empty(live.shape[0], np.int64)
+        pos[order] = np.arange(live.shape[0]) - start[shard[order]]
+        self.cell_of = np.full(snap.capacity, -1, np.int64)  # edge slot → linear cell
+        self.cell_of[live] = shard * self.shard_capacity + pos
+        self.dead: dict[int, tuple[int, int]] = {}  # freed cell → endpoints
+        self.fill = counts.astype(np.int64)
+        self.free: dict[int, list[int]] = {}
+
+    @property
+    def size(self) -> int:
+        """Cells over all shards."""
+        return self.num_shards * self.shard_capacity
+
+    def cells(self) -> tuple[np.ndarray, np.ndarray]:
+        """(live edge slots, their linear cells)."""
+        slots = np.nonzero(self.cell_of >= 0)[0]
+        return slots, self.cell_of[slots]
+
+    def _alloc(self, shard: int) -> int:
+        cells = self.free.get(shard)
+        if cells:
+            return cells.pop()
+        if self.fill[shard] >= self.shard_capacity:
+            raise ShardOverflow(f"shard {shard} edge cells exhausted at {self.shard_capacity}")
+        lin = shard * self.shard_capacity + int(self.fill[shard])
+        self.fill[shard] += 1
+        return lin
+
+    def writes_for(self, ops: Sequence[ResolvedOp]) -> list[ShardWrite]:
+        """Translate resolved slot ops into coalesced sharded-cell writes.
+
+        Raises :class:`ShardOverflow` when an insert exceeds a shard's fixed
+        capacity; the index is then stale and must be rebuilt from the
+        (already updated) host graph.
+        """
+        writes: dict[int, ShardWrite] = {}
+        for (kind, slot, u, v, w) in ops:
+            if kind == "delete":
+                lin = int(self.cell_of[slot])
+                self.cell_of[slot] = -1
+                self.free.setdefault(lin // self.shard_capacity, []).append(lin)
+                self.dead[lin] = (u, v)
+                writes[lin] = ShardWrite(lin, u, v, float(w), False)
+            elif kind == "insert":
+                lin = self._alloc(v // self.vertices_per_shard)
+                self.cell_of[slot] = lin
+                self.dead.pop(lin, None)
+                writes[lin] = ShardWrite(lin, u, v, float(w), True)
+            else:  # weight update in place
+                lin = int(self.cell_of[slot])
+                writes[lin] = ShardWrite(lin, u, v, float(w), True)
+        return list(writes.values())
+
+    def edge_arrays(self, snap: GraphSnapshot) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Sharded-layout COO arrays ``[n · shard_capacity]`` from a snapshot.
+
+        Freed cells keep their last endpoints, as the scatter path
+        (:meth:`writes_for`) leaves them; never-used cells hold edge 0 → 0,
+        invalid.
+        """
+        src = np.zeros(self.size, np.int32)
+        dst = np.zeros(self.size, np.int32)
+        w = np.zeros(self.size, np.float32)
+        valid = np.zeros(self.size, bool)
+        slots, lin = self.cells()
+        src[lin], dst[lin] = snap.src[slots], snap.dst[slots]
+        w[lin], valid[lin] = snap.weight[slots], snap.valid[slots]
+        if self.dead:
+            dead = np.fromiter(self.dead.keys(), np.int64, len(self.dead))
+            ends = np.array(list(self.dead.values()), np.int32).reshape(-1, 2)
+            src[dead], dst[dead] = ends[:, 0], ends[:, 1]
+        return src, dst, w, valid
+
+
 def product_graph(
     g: "DynamicGraph | GraphSnapshot",
     nfa_delta: dict[int, list[tuple[int, int]]],

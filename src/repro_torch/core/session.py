@@ -38,9 +38,12 @@ Gᵀ, and answer through pruned-scratch subqueries.
 
 ``checkpoint``/``restore`` write and read the reference's checkpoint
 format (``checkpoint/store.py``), planner state included: a session
-checkpointed by either package restores in the other.  The vertex-sharded
-sweep (``mesh=``, ROADMAP Queue 1 item 4) waits for its own slice of the
-port and raises :class:`NotImplementedError`.
+checkpointed by either package restores in the other, at any shard count.
+
+``mesh=`` (a :class:`~repro_torch.launch.mesh.DataMesh`, dense engine only)
+runs the vertex-sharded sweep: every slot-pool call acts on every shard's
+rows, and ``restore(mesh=)`` places a checkpoint taken at any shard count
+onto the current mesh.
 """
 
 from __future__ import annotations
@@ -60,12 +63,11 @@ from repro_torch.core.governor import GovernorConfig, MemoryGovernor
 from repro_torch.core.graph import DynamicGraph, product_graph
 from repro_torch.core.scratch import ScratchEngine
 from repro_torch.core.sparse_engine import SparseDiffIFE
+from repro_torch.launch.mesh import DataMesh, mesh_device
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.probes import maintain_stats_dict, publish_session_metrics
 
 ENGINES = ("dense", "host", "scratch")
-
-SHARDED = "the sharded slice of the port (ROADMAP Queue 1 item 4)"
 
 # session checkpoint manifest-meta layout version (the reference's)
 CHECKPOINT_FORMAT = 1
@@ -145,6 +147,11 @@ def engine_config_for(
     )
 
 
+def _session_device(mesh, device) -> torch.device:
+    """A session's device: the mesh's first, or ``device`` (None: CUDA)."""
+    return resolve_device(device) if mesh is None else mesh_device(mesh, device)
+
+
 # --------------------------------------------------------------------------- dense adapter
 class DenseEngine:
     """Session protocol over :class:`DiffIFE`'s query-slot pool."""
@@ -161,6 +168,7 @@ class DenseEngine:
         jstore_capacity: int = 8,
         batch_capacity: int = 32,
         min_slots: int = 1,
+        mesh: DataMesh | None = None,
         device=None,
     ) -> None:
         q_cap = 1 << (max(int(min_slots), 1) - 1).bit_length()
@@ -178,14 +186,14 @@ class DenseEngine:
         init = np.full((q_cap, v), first_plan.semiring.identity, np.float32)
         self.impl = DiffIFE(
             cfg, graph, init, batch_capacity=batch_capacity, active=np.zeros(q_cap, bool),
-            device=device,
+            mesh=mesh, device=device,
         )
 
     def _join_flag(self, plan: qp.QueryPlan) -> bool | None:
         """The plan's Join materialization flag for the engine slot; a plan
         that materializes its Join needs an engine with a join store."""
         policy = plan.join_policy()
-        if policy == "materialize" and self.impl.state.jstore is None:
+        if policy == "materialize" and self.impl.states[0].jstore is None:
             raise ValueError(
                 "plan materializes the Join but the session engine runs JOD "
                 "(no join store); include a join-materializing plan in the "
@@ -290,13 +298,12 @@ class CQPSession:
             raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
         if optimize not in ("none", "auto", "always"):
             raise ValueError(f"unknown optimize mode {optimize!r}; choose none | auto | always")
-        if mesh is not None:
-            if engine != "dense":
-                raise ValueError("mesh sharding is a dense-engine feature")
-            raise NotImplementedError(f"the vertex-sharded sweep (mesh=) is not ported yet: it comes with {SHARDED}")
+        if mesh is not None and engine != "dense":
+            raise ValueError("mesh sharding is a dense-engine feature")
         if governor is not None and budget_bytes is None:
             raise ValueError("a GovernorConfig needs budget_bytes to enforce")
-        self.device = resolve_device(device)
+        self.device = _session_device(mesh, device)
+        self.mesh = mesh
         self._governor: MemoryGovernor | None = None
         if budget_bytes is not None:
             gcfg = governor or GovernorConfig()
@@ -561,7 +568,8 @@ class CQPSession:
             if any(p.join_policy() == "materialize" for p in plans):
                 kw["mode"] = "vdc"
             self._impl = DenseEngine(
-                self._egraph, first_plan, drop_spec=self._drop_spec, device=self.device, **kw
+                self._egraph, first_plan, drop_spec=self._drop_spec, mesh=self.mesh,
+                device=self.device, **kw
             )
         elif self.engine_kind == "host":
             self._impl = SparseDiffIFE(self._egraph, max_iters=int(first_plan.max_iters))
@@ -896,7 +904,7 @@ class CQPSession:
             out["planner"] = self._planner.snapshot()
         if isinstance(self._impl, DenseEngine):
             out["slot_capacity"] = self._impl.impl.slot_capacity
-            out["shards"] = 1
+            out["shards"] = self._impl.impl.num_shards
         ls = self.last_stats
         if isinstance(ls, MaintainStats):
             out["last_maintain"] = maintain_stats_dict(ls)
@@ -917,9 +925,15 @@ class CQPSession:
 
     @property
     def num_shards(self) -> int:
-        return 1  # the vertex-sharded sweep waits for Queue 1 item 4
+        if isinstance(self._impl, DenseEngine):
+            return self._impl.impl.num_shards
+        return 1 if self.mesh is None else self.mesh.size
 
     def nbytes_per_device(self) -> list[int]:
+        """Accounted bytes per shard of the dense engine's vertex partition
+        (they sum to :meth:`nbytes`'s engine part; one entry unsharded)."""
+        if isinstance(self._impl, DenseEngine) and self._impl.impl.sharded:
+            return self._impl.impl.nbytes_per_device()
         return [self.nbytes()]
 
     # ------------------------------------------------------------ durability
@@ -1020,12 +1034,13 @@ class CQPSession:
         ``extra`` cursor and ``timings``: seconds spent loading the
         checkpoint, rebuilding the graph(s), building the engine (its device
         graph and, on ``ell``/``fused``, the host ELL view) and importing the
-        saved state.  ``mesh`` (a restore onto a sharded sweep) raises
-        :class:`NotImplementedError`.
+        saved state.  ``mesh`` is the *current* mesh: the saved state is
+        global, and the engine's ``import_state`` moves the J rows into this
+        mesh's cells and splits every leaf over its shards, so a checkpoint
+        taken at any shard count restores at any other; the device is then
+        the mesh's.
         """
-        if mesh is not None:
-            raise NotImplementedError(f"restoring onto a mesh is not ported yet: it comes with {SHARDED}")
-        device = resolve_device(device)
+        device = _session_device(mesh, device)
         t0 = time.perf_counter()
         arrays, manifest, step = ckpt_store.load_checkpoint(directory, step)
         timings = {"load_s": time.perf_counter() - t0}
@@ -1035,7 +1050,7 @@ class CQPSession:
                 f"checkpoint in {directory} carries no session meta — was it "
                 "written by CQPSession.checkpoint / the recovery supervisor?"
             )
-        sess = cls._from_state(arrays, meta, device=device, timings=timings)
+        sess = cls._from_state(arrays, meta, mesh=mesh, device=device, timings=timings)
         sess.restore_info = {"step": step, "extra": meta.get("user"), "timings": timings}
         return sess
 
@@ -1047,10 +1062,8 @@ class CQPSession:
         :meth:`restore`)."""
         if int(meta.get("format", 0)) != CHECKPOINT_FORMAT:
             raise ValueError(f"unsupported session checkpoint format {meta.get('format')!r}")
-        if mesh is not None:
-            raise NotImplementedError(f"restoring onto a mesh is not ported yet: it comes with {SHARDED}")
         timings = {} if timings is None else timings
-        device = resolve_device(device)
+        device = _session_device(mesh, device)
 
         def clock() -> float:
             if device.type == "cuda":
@@ -1084,6 +1097,7 @@ class CQPSession:
             budget_bytes=None if gov is None else int(gov["budget_bytes"]),
             governor=gcfg,
             optimize=meta.get("optimize", "none"),
+            mesh=mesh,
             device=device,
             **kw,
         )
@@ -1115,7 +1129,8 @@ class CQPSession:
                 # constructor sweep, so import lands on untouched state
                 ekw["min_slots"] = int(em["slot_capacity"])
                 ekw["mode"] = em["mode"]
-                eng = DenseEngine(sess._egraph, first, drop_spec=sess._drop_spec, device=device, **ekw)
+                eng = DenseEngine(sess._egraph, first, drop_spec=sess._drop_spec, mesh=mesh,
+                                  device=device, **ekw)
                 timings["engine_s"] = clock() - t
                 t = clock()
                 eng.impl.import_state(en_arrays, em)

@@ -9,11 +9,12 @@
 //      engine aggregates the J store's messages itself and passes `new`
 //      (the reference's new= variant), and the kernel reads new[q, v]
 //   2. DroppedVT probe: dropped_here = Det row has i | Bloom query of
-//      (v, i) salted by q (csrc/bloom_hash.cuh);  repair = dropped & active & !sched
+//      (v + off, i) salted by q (csrc/bloom_hash.cuh);  repair = dropped & active & !sched
 //   3. change-point detection against the frozen pre-update store:
 //      old, stale, changed
-//   4. drop selection (the per-query DropParams row, stateless hash coin),
-//      difference-store upsert (oldest eviction) and remove_at
+//   4. drop selection (the per-query DropParams row, stateless hash coin of
+//      (seed, q, v + off, i)), difference-store upsert (oldest eviction) and
+//      remove_at
 //   5. cur advance
 //   6. (det) Det store: upsert(i, to_drop), upsert(evicted_iter, evicted),
 //      remove(i, to_store | vanish); evictions and the highest registered
@@ -136,6 +137,10 @@ struct FusedArgs {
   // sizes
   long long bloom_bits;  // M
   int q, v, d, s, s_old, s_det, num_hashes, i, semiring, mode, vp, inplace;
+  // global id of row 0: a vertex-sharded sweep passes its shard's block, and
+  // the coin and the Bloom key hash v + off (rows, stores and degree[v] stay
+  // local)
+  int off;
   float hop_cap;
 };
 
@@ -341,7 +346,7 @@ __device__ __forceinline__ bool dropped_at(const FusedArgs& a, const Plan& p, in
   if (MODE == DET) return find_first<false>(a.det_iters + r * a.s_det, a.s_det, a.i, p.vec_det) >= 0;
   if (MODE == PROB) {
     uint32_t h1, h2;
-    bloom_hash::hash_key((uint32_t)v, (uint32_t)a.i, (uint32_t)q, h1, h2);
+    bloom_hash::hash_key((uint32_t)(v + a.off), (uint32_t)a.i, (uint32_t)q, h1, h2);
     const unsigned char* row = a.bloom + q * a.bloom_bits;
     bool hit = true;
     for (int j = 0; j < a.num_hashes && hit; ++j)
@@ -389,7 +394,7 @@ __device__ __forceinline__ void sweep_row(const FusedArgs& a, const Plan& p, int
       load_row<MAXS, float>(va, a.d_vals + r * a.s, a.s, p.vec_d, 0.0f);
       int cnt = a.d_count[r];
       cur_stored = pick<MAXS>(va, e);
-      to_drop = MODE != NONE && want && select_to_drop(a, q, (uint32_t)v, deg);
+      to_drop = MODE != NONE && want && select_to_drop(a, q, (uint32_t)(v + a.off), deg);
       to_store = want && !to_drop;
       evicted = upsert<MAXS, true>(it, va, cnt, a.s, i, to_store, nw);
       vanish = sch && !want && has_cur;

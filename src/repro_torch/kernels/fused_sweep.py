@@ -112,6 +112,7 @@ def fused_sweep_ref(
     drop_mode: str = "none",
     inplace: bool = False,
     transposed: bool = False,
+    off: int = 0,
     expand: Callable[..., Tensor] = ell_spmv_ref,
 ) -> FusedOut:
     """Plain version: the reference kernel body, stage for stage.
@@ -125,14 +126,14 @@ def fused_sweep_ref(
     own, so that ``pr_sum`` can be compared bit for bit.  ``inplace``
     computes the same and then copies the stores into ``dstore`` (and
     ``det``), which come back as the outputs; ``transposed`` as for
-    :func:`fused_sweep`.
+    :func:`fused_sweep`; ``off`` too.
     """
     if new is None:
         new = expand(states, nbr, w, kcarry, semiring=semiring, hop_cap=hop_cap,
                      transposed=transposed)
     q, v = sched.shape
     dev = sched.device
-    v_ids = torch.arange(v, dtype=torch.int32, device=dev)[None, :]
+    v_ids = off + torch.arange(v, dtype=torch.int32, device=dev)[None, :]  # global ids
     q_ids = torch.arange(q, dtype=torch.int32, device=dev)[:, None]
 
     # ---- stage 2: DroppedVT probe → repair mask
@@ -219,7 +220,7 @@ _PTRS = (
     "out_det_iters", "out_det_count", "out_det_overflow", "out_det_max_iter",
 )
 _INTS = ("q", "v", "d", "s", "s_old", "s_det", "num_hashes", "i", "semiring", "mode", "vp",
-         "inplace")
+         "inplace", "off")
 
 
 class _FusedArgs(ctypes.Structure):
@@ -336,6 +337,7 @@ def fused_sweep(
     drop_mode: str = "none",
     inplace: bool = False,
     transposed: bool = False,
+    off: int = 0,
 ) -> FusedOut:
     """One fused maintenance iteration: a single kernel launch.
 
@@ -347,7 +349,9 @@ def fused_sweep(
     one pass); otherwise the card's path makes one transposing copy.
     ``degree`` [V] (f32 total degree) and ``params`` feed the drop
     selection; ``det`` (det mode) or ``bloom_bits`` bool [Q, M] (prob mode)
-    is the DroppedVT.
+    is the DroppedVT.  ``off`` is the global id of row 0 (a vertex-sharded
+    sweep passes its shard's block): the drop coin and the Bloom key hash
+    global ids, while rows, stores and ``degree`` stay local.
 
     ``inplace``: the outputs' stores are ``dstore`` (and ``det``) themselves,
     updated where they change; it raises if ``dstore`` shares storage with
@@ -370,7 +374,9 @@ def fused_sweep(
     dev = devices.pop()
     kw = dict(nbr=nbr, w=w, kcarry=kcarry, new=new, degree=degree, params=params,
               det=det, bloom_bits=bloom_bits, bloom_hashes=bloom_hashes,
-              semiring=semiring, hop_cap=hop_cap, drop_mode=drop_mode, inplace=inplace)
+              semiring=semiring, hop_cap=hop_cap, drop_mode=drop_mode, inplace=inplace, off=off)
+    if off < 0 or off + sched.shape[1] > 2**31 - 1:
+        raise ValueError(f"fused_sweep takes global vertex ids below 2**31, got off={off}")
     if dev.type == "cpu":
         return fused_sweep_ref(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore,
                                states=states_t, transposed=True, **kw)
@@ -382,7 +388,7 @@ def fused_sweep(
 
 def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, *, states_t,
             nbr, w, kcarry, new, degree, params, det, bloom_bits, bloom_hashes, semiring,
-            hop_cap, drop_mode, inplace) -> FusedOut:
+            hop_cap, drop_mode, inplace, off) -> FusedOut:
     q, v = sched.shape
     s = dstore.capacity
     s_det = det.capacity if drop_mode == "det" else 0
@@ -454,7 +460,7 @@ def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, 
         bloom_bits=m_bits, q=q, v=v, d=0 if new is not None else nbr.shape[1], s=s,
         s_old=old_dstore.capacity, s_det=s_det, num_hashes=int(bloom_hashes), i=int(i),
         semiring=SEMIRINGS.index(semiring), mode=DROP_MODES.index(drop_mode),
-        vp=0 if new is not None else states_t.shape[0], inplace=int(inplace),
+        vp=0 if new is not None else states_t.shape[0], inplace=int(inplace), off=int(off),
         hop_cap=float(hop_cap),
     )
     lib = _lib()

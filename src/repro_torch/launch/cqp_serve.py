@@ -24,8 +24,11 @@ each CUDA kernel.
 ``--optimize auto|always`` runs the plan optimizer (`repro_torch.planner`):
 ``--query spsp`` plans then share one landmark index and answer through
 pruned-scratch subqueries; the JSON report carries the planner's block.
-``--mesh`` other than ``none`` and ``--emulate-devices`` (the vertex-sharded
-sweep, ROADMAP Queue 1 item 4) are not ported yet and exit with a message.
+``--mesh data --shards N`` runs the vertex-sharded sweep over N cards
+(``--mesh smoke``: one shard); ``--emulate-devices N`` places the N shards
+on the one ``--device`` instead — the counterpart of the reference's
+host-device flag, never chosen without it.  The JSON line then carries the
+per-device accounted bytes (their peak and the final split).
 
 ``--budget-bytes`` puts the stream under the memory governor (DESIGN.md
 §10): a global accounted-byte budget enforced online by escalating each
@@ -83,15 +86,36 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.metrics import PhaseRecorder, summarize_latency_s
 
-SHARDED = "the vertex-sharded sweep is not ported yet (ROADMAP Queue 1 item 4)"
+def make_mesh(kind: str, shards: int | None, *, emulate: int = 0, device=None):
+    """Resolve --mesh: ``none`` (unsharded), ``smoke`` (one shard),
+    ``data`` (``shards`` shards; default: every visible card, or every
+    emulated device) or ``production``.  ``emulate`` N > 0 emulates N
+    devices on ``device``: the ``data`` mesh's shards then share it."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    if emulate and kind != "data":
+        raise SystemExit(f"--emulate-devices needs --mesh data, not --mesh {kind}")
+    try:
+        if kind == "none":
+            return None
+        if kind == "smoke":
+            return mesh_lib.make_smoke_mesh(device)
+        if kind == "production":
+            return mesh_lib.make_production_mesh()
+        if emulate:
+            n = emulate if shards is None else int(shards)
+            if n > emulate:
+                raise ValueError(f"asked for {n} shards but only {emulate} devices are emulated")
+            return mesh_lib.make_data_mesh(n, device=device, emulate=True)
+        return mesh_lib.make_data_mesh(shards, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {kind}: {e}") from None
 
 
-def make_mesh(kind: str, shards: int | None):
-    """Resolve --mesh: only ``none`` (one device) is ported."""
-    del shards
-    if kind == "none":
-        return None
-    raise SystemExit(f"--mesh {kind}: {SHARDED}")
+def mesh_of(args):
+    """The mesh the CLI's arguments ask for."""
+    return make_mesh(args.mesh, args.shards, emulate=getattr(args, "emulate_devices", 0),
+                     device=args.device)
 
 
 def load_plan_file(path: str):
@@ -184,7 +208,7 @@ def build_session(args):
 
     edges, initial, log = build_log(args)
     graph = DynamicGraph(args.v, initial, capacity=len(edges) * 4 + 64)
-    mesh = make_mesh(args.mesh, args.shards)
+    mesh = mesh_of(args)
     plans = initial_plans(args)
     gov_kw = {}
     if args.budget_bytes is not None:
@@ -222,9 +246,7 @@ def serve(args) -> dict:
     if args.restore:
         from repro_torch.core.session import CQPSession
 
-        session = CQPSession.restore(
-            args.checkpoint_dir, mesh=make_mesh(args.mesh, args.shards), device=args.device
-        )
+        session = CQPSession.restore(args.checkpoint_dir, mesh=mesh_of(args), device=args.device)
         initial_plans(args)  # normalize args.queries (plan files / pagerank)
         handles = session.handles()
         extra = (session.restore_info or {}).get("extra") or {}
@@ -337,9 +359,7 @@ def serve(args) -> dict:
                 s, M["handles"], _ = build_session(args)
                 start = 0
             else:
-                s = CQPSession.restore(
-                    directory, mesh=make_mesh(args.mesh, args.shards), device=args.device
-                )
+                s = CQPSession.restore(directory, mesh=mesh_of(args), device=args.device)
                 M["handles"] = s.handles()
                 extra = (s.restore_info or {}).get("extra") or {}
                 start = int(extra.get("next_chunk", 0))
@@ -411,6 +431,7 @@ def serve(args) -> dict:
         "peak_diff_bytes": int(M["peak"]),
         "shards": session.num_shards,
         "peak_diff_bytes_per_device": int(M["peak_dev"]),
+        "nbytes_per_device": [int(x) for x in session.nbytes_per_device()],
         "registers": len(reg_ms),
         "deregisters": len(dereg_ms),
         "register_ms": [float(x) for x in reg_ms],
@@ -624,8 +645,8 @@ def main(argv=None) -> None:
         "--mesh",
         choices=("none", "smoke", "data", "production"),
         default="none",
-        help="mesh to serve on: only 'none' is ported (the sharded sweep "
-        "comes with ROADMAP Queue 1 item 4)",
+        help="mesh to serve on: none (unsharded), smoke (one shard), data "
+        "(the vertex-sharded sweep over --shards cards) or production",
     )
     ap.add_argument(
         "--shards", type=int, default=None,
@@ -633,8 +654,8 @@ def main(argv=None) -> None:
     )
     ap.add_argument(
         "--emulate-devices", type=int, default=0,
-        help="emulate N host devices for the sharded sweep (not ported: "
-        "ROADMAP Queue 1 item 4)",
+        help="emulate N devices on --device for --mesh data: the shards "
+        "share the one device (how one card or the CPU runs shards)",
     )
     ap.add_argument(
         "--checkpoint-dir",
@@ -711,10 +732,8 @@ def main(argv=None) -> None:
             "--register-at derives churn plans from --query and cannot "
             "be combined with --plan-file (one session, one family)"
         )
-    if args.emulate_devices:
-        ap.exit(2, f"--emulate-devices: {SHARDED}\n")
-    if args.mesh != "none":
-        ap.exit(2, f"--mesh {args.mesh}: {SHARDED}\n")
+    if args.emulate_devices and args.mesh != "data":
+        ap.error("--emulate-devices needs --mesh data")
     if args.smoke:
         args.v, args.e = min(args.v, 64), min(args.e, 256)
         args.queries = min(args.queries, 4)

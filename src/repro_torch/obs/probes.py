@@ -79,7 +79,7 @@ def _dense_impl(session) -> Any | None:
     """The dense engine's ``DiffIFE`` behind a session, or None."""
     impl = getattr(session, "_impl", None)
     inner = getattr(impl, "impl", None)
-    return inner if inner is not None and hasattr(inner, "state") else None
+    return inner if inner is not None and hasattr(inner, "states") else None
 
 
 def bloom_stats(session) -> dict[int, dict]:
@@ -89,7 +89,7 @@ def bloom_stats(session) -> dict[int, dict]:
     eng = _dense_impl(session)
     if eng is None:
         return {}
-    flt = eng.state.drop.flt
+    flt = eng.states[0].drop.flt  # replicated on every shard
     if flt is None:
         return {}
     fill = np.atleast_1d(bloom_lib.fill_fraction(flt).cpu().numpy())
@@ -114,10 +114,10 @@ def dropped_diff_counts(session) -> dict[int, int]:
     eng = _dense_impl(session)
     if eng is None:
         return {}
-    det = eng.state.drop.det
-    if det is None:
+    if eng.states[0].drop.det is None:
         return {}
-    counts = det.count.sum(dim=1, dtype=torch.int64).cpu().numpy()  # [Q]
+    # [Q], summed over the shards' vertex blocks
+    counts = sum(st.drop.det.count.sum(dim=1, dtype=torch.int64).cpu() for st in eng.states).numpy()
     out: dict[int, int] = {}
     for qid, slot in getattr(session, "_handles", {}).items():
         if slot < counts.shape[0]:

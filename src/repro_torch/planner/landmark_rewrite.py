@@ -46,24 +46,25 @@ from repro_torch.planner.rules import INDEX_OP, PLANNER_QID, RewriteRule
 
 def _rows(session, qids) -> torch.Tensor:
     """The answer rows of ``qids`` as one ``[n, V]`` tensor on the session's
-    device: a dense engine's rows are gathered on the device, the host and
-    scratch engines' rows are uploaded."""
+    device: a dense engine's rows are gathered on the device (from every
+    shard of a sharded one), the host and scratch engines' rows are
+    uploaded."""
     from repro_torch.core.session import DenseEngine
 
     slots = [session._handles[q] for q in qids]
     if isinstance(session._impl, DenseEngine):
-        cur = session._impl.impl.state.cur
-        return cur.index_select(0, torch.tensor(slots, device=cur.device))
+        return session._impl.impl.answer_rows(slots)
     rows = np.stack([session._impl.answers_row(s) for s in slots])
     return torch.from_numpy(rows).to(session.device)
 
 
 def _device_graph(session):
-    """A dense engine's device graph (kept current by every ingest), or
-    ``None``: the pruned run then builds one from the graph's snapshot."""
+    """An unsharded dense engine's device graph (kept current by every
+    ingest), or ``None``: the pruned run then builds one from the graph's
+    snapshot (a sharded engine's graph is split by destination)."""
     from repro_torch.core.session import DenseEngine
 
-    if isinstance(session._impl, DenseEngine):
+    if isinstance(session._impl, DenseEngine) and not session._impl.impl.sharded:
         return session._impl.impl.g
     return None
 
@@ -189,7 +190,7 @@ class LandmarkRule(RewriteRule):
         from repro_torch.core.session import CQPSession
 
         # COO keeps the twin's sweep shape independent of Gᵀ's degree
-        # distribution
+        # distribution; no mesh — the index is L rows, not worth sharding
         return CQPSession(
             lm.transpose_graph(session.graph),
             engine=session.engine_kind,
@@ -360,7 +361,7 @@ class LandmarkRule(RewriteRule):
                     if k.startswith("planner_rev/")
                 },
                 meta["rev"],
-                device=session.device,
+                device=session.device,  # unsharded whatever the host mesh: it is L rows
             )
             self.rev_handles = self.rev_session.handles()
         if self.queries:

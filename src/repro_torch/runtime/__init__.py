@@ -1,3 +1,2 @@
 """Serving runtime: fault supervision, recovery of a CQP session, straggler
-detection.  The mesh rules and elastic resharding come with the sharded
-slice of the port (ROADMAP Queue 1 item 4)."""
+detection, and elastic resharding of a sharded engine (``runtime.elastic``)."""

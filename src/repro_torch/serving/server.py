@@ -61,7 +61,7 @@ from repro_torch.core import dropping as dr
 from repro_torch.core import plan as qp
 from repro_torch.core.graph import DynamicGraph
 from repro_torch.core.governor import GovernorConfig
-from repro_torch.core.session import SHARDED, CQPSession
+from repro_torch.core.session import CQPSession
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime.fault import FaultPolicy, InjectedFault
@@ -173,9 +173,9 @@ class CQPServer:
         delay_injector: Callable[[int], float] | None = None,
         clock: Callable[[], float] = time.perf_counter,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(f"serving a sharded session (mesh=) is not ported yet: it comes with {SHARDED}")
         self.config = config or ServerConfig()
+        # the mesh a restore places the session's state onto
+        self.mesh = mesh if mesh is not None else session.mesh
         self.session = session
         self.session_factory = session_factory
         self.clock = clock
@@ -729,7 +729,7 @@ class CQPServer:
             return self._genesis()
         # the restore reads only what reached the disk, onto the device the
         # serving session runs on
-        session = CQPSession.restore(directory, device=self.session.device)
+        session = CQPSession.restore(directory, mesh=self.mesh, device=self.session.device)
         extra = (session.restore_info or {}).get("extra") or {}
         return session, int(extra.get("next_chunk", 0))
 
@@ -868,6 +868,7 @@ def _scripted_scenario(args: argparse.Namespace) -> dict:
     against a scratch oracle, deregister everyone."""
     from repro_torch.core import plan
     from repro_torch.data.graphgen import powerlaw_graph, split_90_10, update_stream
+    from repro_torch.launch.cqp_serve import mesh_of
 
     edges = powerlaw_graph(args.v, args.e, seed=args.seed)
     initial, pool = split_90_10(edges, seed=args.seed)
@@ -881,6 +882,7 @@ def _scripted_scenario(args: argparse.Namespace) -> dict:
         seed=args.seed + 1,
     )
     log = [u for batch in stream for u in batch]
+    mesh = mesh_of(args)
     ladder = GovernorConfig(representation="prob")
 
     def fresh_graph() -> DynamicGraph:
@@ -891,6 +893,7 @@ def _scripted_scenario(args: argparse.Namespace) -> dict:
             fresh_graph(),
             ladder=ladder,
             engine=args.engine,
+            mesh=mesh,
             batch_capacity=args.batch,
             min_slots=args.tenants,
             device=args.device,
@@ -922,6 +925,7 @@ def _scripted_scenario(args: argparse.Namespace) -> dict:
             config=cfg,
             session_factory=factory,
             checkpoint_dir=args.checkpoint_dir,
+            mesh=mesh,
             fault_injector=injector if fault_at is not None else None,
         )
         async with server:
@@ -982,8 +986,11 @@ def main(argv=None) -> int:
                     help="torch device (default: the CUDA device; 'cpu' runs "
                     "the plain PyTorch versions)")
     ap.add_argument("--mesh", default="none", choices=["none", "smoke", "data"],
-                    help="dense-engine mesh: only 'none' is ported")
+                    help="dense-engine mesh: none (unsharded), smoke (one shard) or "
+                    "data (the vertex-sharded sweep over --shards cards)")
     ap.add_argument("--shards", type=int, default=None)
+    ap.add_argument("--emulate-devices", type=int, default=0,
+                    help="emulate N devices on --device for --mesh data")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--inject-fault-at", type=int, default=None)
@@ -995,9 +1002,8 @@ def main(argv=None) -> int:
                     help="write obs registry snapshots per scrape")
     ap.add_argument("--json", action="store_true", help="print the full stats")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        ap.exit(2, f"--mesh {args.mesh}: the vertex-sharded sweep is not ported yet "
-                "(ROADMAP Queue 1 item 4)\n")
+    if args.emulate_devices and args.mesh != "data":
+        ap.error("--emulate-devices needs --mesh data")
     if args.smoke:
         args.v = min(args.v, 64)
         args.e = min(args.e, 256)

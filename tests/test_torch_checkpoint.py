@@ -30,6 +30,7 @@ from repro_torch.core import dropping as tdr
 from repro_torch.core import plan as tplan
 from repro_torch.core.graph import DynamicGraph as TGraph
 from repro_torch.core.session import CQPSession as TSession
+from repro_torch.launch.mesh import Sharding, make_data_mesh
 
 V = 16
 CPU = "cpu"
@@ -128,8 +129,19 @@ def test_restore_validates_manifest(tmp_path):
         tstore.restore_checkpoint(d, bad_dtype)
     with pytest.raises(ValueError, match="extra"):
         tstore.restore_checkpoint(d, {"extra": np.zeros(1), **_zeros_like(_tree())})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="Sharding at every leaf"):
         tstore.restore_checkpoint(d, _zeros_like(_tree()), shardings={})
+    # shardings place every leaf on a 2-shard CPU mesh: split along an axis, or replicated
+    mesh = make_data_mesh(2, device=CPU, emulate=True)
+    rep = Sharding(mesh)
+    specs = {"w": Sharding(mesh, 1), "nested": {"b": rep, "seq": [Sharding(mesh, 0), (rep,)]}}
+    placed, _ = tstore.restore_checkpoint(d, _zeros_like(_tree()), shardings=specs)
+    want = _tree()
+    assert [p.tolist() for p in placed["w"]] == [want["w"][:, :2].tolist(), want["w"][:, 2:].tolist()]
+    assert len(placed["nested"]["b"]) == 2
+    assert all(np.array_equal(p.numpy(), want["nested"]["b"]) for p in placed["nested"]["b"])
+    assert [p.tolist() for p in placed["nested"]["seq"][0]] == [[0.0], [0.0]]
+    assert [p.tolist() for p in placed["nested"]["seq"][1][0]] == [[1], [1]]
     with pytest.raises(FileNotFoundError):
         tstore.load_checkpoint(str(tmp_path / "empty"))
 
@@ -385,8 +397,8 @@ def test_governor_escalations_survive_restore(tmp_path):
 
 def test_restore_refuses_bad_meta(tmp_path):
     """A foreign checkpoint (no session meta), an unknown format, a bad
-    reference knob and ``mesh=`` are refused by name; plan-optimizer state
-    restores."""
+    reference knob and a ``mesh=`` that is not a DataMesh are refused by
+    name (a 2-shard CPU mesh restores); plan-optimizer state restores."""
     tstore.save_checkpoint(str(tmp_path / "foreign"), 0, {"x": np.zeros(3)})
     with pytest.raises(ValueError, match="no session meta"):
         TSession.restore(str(tmp_path / "foreign"), device=CPU)
@@ -415,8 +427,10 @@ def test_restore_refuses_bad_meta(tmp_path):
     with pytest.raises(ValueError, match="live plans but no engine"):
         TSession._from_state(arrays, {**meta, "engine_state": False}, device=CPU)
     s.checkpoint(str(tmp_path / "ok"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="DataMesh"):
         TSession.restore(str(tmp_path / "ok"), mesh=object(), device=CPU)
+    on_mesh = TSession.restore(str(tmp_path / "ok"), mesh=make_data_mesh(2, device=CPU, emulate=True))
+    assert on_mesh.num_shards == 2 and on_mesh.num_queries == 1
 
 
 # the reference's hypothesis property shrank to this stream (V = 16, source

@@ -30,6 +30,7 @@ from repro_torch.core import engine as teng
 from repro_torch.core import queries as tq
 from repro_torch.core import scratch as tscratch
 from repro_torch.core.graph import DynamicGraph as TGraph
+from repro_torch.launch.mesh import make_data_mesh
 
 V = 24
 CPU = "cpu"
@@ -315,8 +316,15 @@ def test_maintain_leaves_its_input_state_frozen():
 
 def test_unported_configurations_raise():
     g = TGraph(4, [(0, 1, 1.0)], capacity=8)
-    with pytest.raises(NotImplementedError, match="sharded slice"):
+    # the vertex-sharded sweep is ported: a mesh must be a DataMesh, and a
+    # 2-shard CPU mesh answers as the unsharded engine
+    with pytest.raises(TypeError, match="DataMesh"):
         tq.sssp(g, [0], mesh=object(), device=CPU)
+    edges = [(0, 1, 1.0), (1, 2, 2.0), (3, 0, 1.0)]
+    sharded = tq.sssp(TGraph(4, edges, capacity=8), [0], mesh=make_data_mesh(2, device=CPU, emulate=True),
+                      device=CPU)
+    assert sharded.num_shards == 2 and len(sharded.states) == 2
+    np.testing.assert_array_equal(sharded.answers(), tq.sssp(TGraph(4, edges, capacity=8), [0], device=CPU).answers())
     with pytest.raises(ValueError, match="realizes JOD"):
         tq.sssp(g, [0], mode="vdc", backend="ell", device=CPU)
     # dropping, the fused backend, VDC and the slot pool are ported: this

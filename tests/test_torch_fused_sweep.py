@@ -88,7 +88,7 @@ def _port_call(x, semiring, mode, device="cpu"):
     return args, kw
 
 
-def _reference(x, semiring, mode):
+def _reference(x, semiring, mode, off=0):
     import jax.numpy as jnp
 
     from repro.core import diffstore as rds
@@ -106,7 +106,7 @@ def _reference(x, semiring, mode):
         kw["det"] = rds.DiffStore(*map(j, x["det"]))
     if mode == "prob":
         kw.update(bloom_bits=j(x["bloom_bits"]), bloom_hashes=3)
-    return fused_sweep(x["i"], 0, j(x["sched"]), j(x["active"]), j(x["cur"]), j(x["cur_old"]),
+    return fused_sweep(x["i"], off, j(x["sched"]), j(x["active"]), j(x["cur"]), j(x["cur_old"]),
                        j(x["stale_old"]), rds.DiffStore(*map(j, x["dstore"])),
                        rds.DiffStore(*map(j, x["old"])), **kw)
 

@@ -7,8 +7,8 @@ SPSP target answers and the whole pruned fields, ``iters`` and ``work``,
 ``stats()["planner"]`` (but the wall-clock ``scratch_seconds``), the byte
 and cost maps the governor reads, and the governor's shed and
 re-materialise counters.  Checkpoints with planner state cross the
-packages both ways.  The sharded case raises in the port, naming ROADMAP
-Queue 1 item 4.
+packages both ways.  The sharded case runs on a 2-shard CPU mesh and
+equals the unsharded session.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from repro_torch.core import plan as tplan
 from repro_torch.core.graph import DynamicGraph as TGraph
 from repro_torch.core.session import CQPSession as TSession
 from repro_torch import planner as tplanner
+from repro_torch.launch.mesh import make_data_mesh
 
 REF = types.SimpleNamespace(name="ref", S=RSession, G=RGraph, qp=rplan, dr=rdr, planner=rplanner, kw={})
 PORT = types.SimpleNamespace(name="port", S=TSession, G=TGraph, qp=tplan, dr=tdr, planner=tplanner,
@@ -162,11 +163,27 @@ def test_rewrite_parity_engines_and_drop(engine, drop_mode):
 
 
 def test_rewrite_parity_sharded_dense_raises_naming_item_4():
-    """``test_rewrite_parity_sharded_dense``'s counterpart: the vertex-sharded
-    sweep is not ported, with or without the optimizer."""
+    """``test_rewrite_parity_sharded_dense``'s counterpart on a 2-shard CPU
+    mesh: the rewritten SPSP targets equal un-rewritten scratch SSSP, and
+    every field and the planner's snapshot equal the unsharded session's
+    (the landmark twin stays unsharded); a mesh that is not a DataMesh is
+    refused with TypeError."""
+    mesh = make_data_mesh(2, device="cpu", emulate=True)
     for optimize in ("always", "auto"):
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(TypeError, match="DataMesh"):
             session(PORT, engine="dense", mesh=object(), optimize=optimize)
+        sharded = session(PORT, engine="dense", mesh=mesh, optimize=optimize)
+        flat = session(PORT, engine="dense", optimize=optimize)
+        hs, hf = sharded.register_many(spsp_plans(PORT)), flat.register_many(spsp_plans(PORT))
+        sharded.apply_updates(UPS)
+        flat.apply_updates(UPS)
+        assert sharded.num_shards == 2
+        np.testing.assert_array_equal(targets(sharded, hs), reference_targets(UPS))
+        for a, b in zip(hs, hf):
+            np.testing.assert_array_equal(sharded.answers(a), flat.answers(b))
+        assert planner_stats(sharded) == planner_stats(flat)
+        twins = [r.rev_session for r in sharded._planner.rules if getattr(r, "rev_session", None)]
+        assert all(t.num_shards == 1 for t in twins) and (optimize == "auto" or twins)
 
 
 @pytest.mark.parametrize("pkg", PKGS, ids=lambda p: p.name)

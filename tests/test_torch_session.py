@@ -23,6 +23,7 @@ from repro_torch.core import plan as tplan
 from repro_torch.core import queries as tq
 from repro_torch.core.graph import DynamicGraph as TGraph
 from repro_torch.core.session import ENGINES, CQPSession as TSession
+from repro_torch.launch.mesh import make_data_mesh
 from test_torch_engine import random_workload
 
 V = 16
@@ -209,8 +210,9 @@ def test_failed_register_batch_leaves_the_session_untouched():
 
 
 def test_validation_errors_and_unported_pieces(tmp_path):
-    """The reference's validation errors; the optimizer and the mesh (also
-    on restore) raise NotImplementedError naming their ROADMAP items; a
+    """The reference's validation errors; a mesh that is not a DataMesh is
+    refused with TypeError (also on restore), and a 2-shard CPU mesh runs
+    the sharded sweep, with the optimizer too, and restores onto a mesh; a
     restore from an empty directory finds nothing; the default device is
     the GPU."""
     initial, _ = random_workload(14, v=V, e=48, num_batches=1)
@@ -236,10 +238,17 @@ def test_validation_errors_and_unported_pieces(tmp_path):
         TSession(graph, engine="host", mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="budget_bytes"):
         TSession(graph, engine="dense", governor=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="DataMesh"):
         TSession(graph, engine="dense", mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="DataMesh"):
         TSession(graph, engine="dense", mesh=object(), optimize="always", device=CPU)
+    mesh = make_data_mesh(2, device=CPU, emulate=True)
+    for optimize in ("none", "always"):
+        sharded = TSession(TGraph(V, initial, capacity=256), engine="dense", mesh=mesh,
+                           optimize=optimize, device=CPU)
+        hs = sharded.register(tplan.sssp(0, max_iters=MAX_ITERS))
+        assert sharded.num_shards == 2 and sharded.stats()["shards"] == 2
+        assert sum(sharded.nbytes_per_device()) == sharded.nbytes()
     # the plan optimizer runs: a session in auto mode owns a planner, and a
     # plan no rule matches (no Aggregate) registers into an engine slot
     assert TSession(graph, engine="dense", optimize="auto", device=CPU)._planner.mode == "auto"
@@ -248,8 +257,13 @@ def test_validation_errors_and_unported_pieces(tmp_path):
     with pytest.raises(FileNotFoundError):
         TSession.restore(str(tmp_path / "none"), device=CPU)
     s.checkpoint(str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="DataMesh"):
         TSession.restore(str(tmp_path / "ckpt"), mesh=object(), device=CPU)
+    on_mesh = TSession.restore(str(tmp_path / "ckpt"), mesh=mesh)
+    assert on_mesh.num_shards == 2 and on_mesh.device == torch.device("cpu")
+    sharded.checkpoint(str(tmp_path / "sharded"))
+    back = TSession.restore(str(tmp_path / "sharded"), device=CPU)
+    np.testing.assert_array_equal(back.answers(back.handles()[0]), sharded.answers(hs))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TSession(graph, engine="dense")
