@@ -130,7 +130,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                follow its cell), PageRank at rtol 1e-6, and a stream that
                overflows the fullest shard's cells and the ELL width.
                ``parity_session``: sessions at V = 2**16 whose pools grow
-               1 → 16 by single registrations, with a shed, a join flip and
+               1 → 8 by single registrations, with a shed, a join flip and
                a deregistration between chunks, on coo/ell/fused (JOD),
                ell/fused (det, prob) and coo/fused (VDC): leaf-equal within
                a drop mode, JOD equal to SCRATCH; the fused det session's
@@ -170,6 +170,27 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                held to the same floor.
                ``main_lm_f32``: full width in float32, TF32 off, 2 x 1024
                and 8 steps; logits within 1e-4 of the plain path's.
+               ``main_moe``: qwen2-moe-a2.7b at its published widths in
+               bf16 (the init's peak memory at most one float32 slice above
+               the weights): prefill 8 x 4096 and 32 decode steps (K5 one
+               launch a layer a call), the dropped share of the routed
+               choices at prefill and decode, layer 0's router logits routed
+               on the card and on the host (top-k, slots and per-expert
+               counts equal), the plain path teacher-forced (top-1 >= 0.9),
+               the logit difference of the q scale's bf16 rounding at D =
+               128, one profiled prefill and decode step split by profiler
+               range (attention, dispatch, expert products, combine), then
+               ``lm_serve`` at the CLI defaults.  ``main_moe_long``: 8
+               decode steps at batch 4 against a 32768-position cache from
+               the generator, held to the same floor.  ``main_mla``:
+               minicpm3-4b likewise (MLA: ``chunked_attention``, no K5):
+               prefill 8 x 4096 and 16 steps, its decode logits against one
+               forward over the same tokens (within 5e-2 of the largest
+               |logit|), a batch-4 32k decode, ``lm_serve``, and 2 layers at
+               full width in float32 on the card against the CPU (1e-4).
+               ``main_mind``: MIND's ``serve_p99`` on the card against the
+               CPU (rtol 1e-5), then ``serve_p99``, ``serve_bulk`` and
+               ``retrieval_cand`` timed, and ``mind_serve``.
 8. ``kernel_real``  each kernel against its plain version at the main
                path's shapes, timed with CUDA events, beside its bound:
                ``ell_spmv`` on the ``main`` engine's ELL arrays (for
@@ -190,8 +211,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                exit reaches) and its time on an L1-sized filter row;
                ``diff_lookup`` on the J and Det stores;
                ``flash_attention`` on the first prefill and decode call of
-               ``main_lm`` and ``main_lm_long``, whose operands are kept by
-               running those two calls again after the timed run, and on
+               ``main_lm``, ``main_lm_long``, ``main_moe`` and
+               ``main_moe_long``, whose operands are kept by running those
+               calls again after the timed run, and on
                random bf16 operands at head dims 128 (qwen2-moe's 16/16
                heads at 8 x 4096 and a 32 x 32,753-key cache view;
                qwen2-72b's 64/8 at 1 x 4096) and 16 (the smoke config's
@@ -315,10 +337,40 @@ def pick_sources(graph, count: int, rng) -> list[int]:
     return [int(x) for x in rng.choice(has_out, size=count, replace=False)]
 
 
-def device_busy(prof, path: Path, k5: bool = False) -> dict:
+def device_ms_by_range(events, names) -> dict:
+    """Device time (kernels, copies, sets) launched inside each profiler
+    range (``record_function``, ``repro_torch.models.common.profile_range``)
+    named in ``names``, each launch charged to the innermost such range
+    around its CUDA runtime call; ``unattributed`` holds the rest."""
+    import bisect
+
+    ranges = sorted((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]), ev["name"]) for ev in events
+                    if ev.get("ph") == "X" and ev.get("cat") == "user_annotation" and ev.get("name") in names)
+    starts = [r[0] for r in ranges]
+    launched = {ev["args"]["correlation"]: float(ev["ts"]) for ev in events
+                if ev.get("ph") == "X" and ev.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in ev.get("args", {})}
+    out = {n: 0.0 for n in (*names, "unattributed")}
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = launched.get(ev.get("args", {}).get("correlation"))
+        name = "unattributed"
+        if ts is not None:
+            i = bisect.bisect_right(starts, ts) - 1
+            while i >= 0 and ranges[i][1] < ts:  # siblings that ended before the launch
+                i -= 1
+            if i >= 0:
+                name = ranges[i][2]
+        out[name] += float(ev["dur"]) / 1e3
+    return out
+
+
+def device_busy(prof, path: Path, k5: bool = False, ranges=()) -> dict:
     """Device-busy time of a profiled window from its Chrome trace (kernels,
-    copies and sets on the card), plus the top kernels by time and, with
-    ``k5``, the time of K5's kernels."""
+    copies and sets on the card), plus the top kernels by time, with ``k5``
+    the time of K5's kernels, and with ``ranges`` the device time under each
+    named profiler range (:func:`device_ms_by_range`)."""
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     by_name: dict[str, float] = {}
@@ -332,6 +384,8 @@ def device_busy(prof, path: Path, k5: bool = False) -> dict:
     out = {"device_busy_ms": busy / 1e3, "top_device_ms": {k: v / 1e3 for k, v in top}}
     if k5:  # every K5 kernel's time, not only the top names'
         out["flash_attention_ms"] = sum(t for k, t in by_name.items() if "flash_attn" in k) / 1e3
+    if ranges:
+        out["device_ms_by_range"] = device_ms_by_range(events, ranges)
     return out
 
 
@@ -2588,8 +2642,9 @@ def cqp_serve_drill() -> dict:
 
 
 def parity_session(device, num_vertices: int = 1 << 16) -> dict:
-    """Sessions at V = 2**16 whose pools grow 1 → 16 one registration at a
-    time (8 SSSP queries, a 32-update chunk, 8 more, a second chunk), then a
+    """Sessions at V = 2**16 whose pools grow 1 → 8 one registration at a
+    time (4 SSSP queries, a 32-update chunk, 4 more, a second chunk; 8
+    queries, not 16, for the script's time limit), then a
     policy rewrite (det/prob: an iterate shed of one query; VDC: its join
     dropped and re-materialized), a deregistration and a third chunk.  JOD
     on ``coo``, ``ell`` and ``fused``; det and prob on ``ell`` and
@@ -2613,7 +2668,7 @@ def parity_session(device, num_vertices: int = 1 << 16) -> dict:
     rng = np.random.default_rng(SEED + 5)
     num_edges = round(num_vertices * PATENTS_E / PATENTS_V)
     initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), 96, 0.2, rng)
-    sources = pick_sources(DynamicGraph(num_vertices, initial), 16, rng)
+    sources = pick_sources(DynamicGraph(num_vertices, initial), 8, rng)
     sessions = {  # name: (backend, engine mode, drop mode)
         "coo": ("coo", "jod", "none"), "ell": ("ell", "jod", "none"), "fused": ("fused", "jod", "none"),
         "ell_det": ("ell", "jod", "det"), "fused_det": ("fused", "jod", "det"),
@@ -2632,7 +2687,7 @@ def parity_session(device, num_vertices: int = 1 << 16) -> dict:
         for k, plan in enumerate(plans):
             handles.append(sess.register(plan))
             caps.append(sess._impl.impl.slot_capacity)
-            if k == 7:
+            if k == 3:
                 sess.apply_updates_batched(stream[:32])
         sess.apply_updates_batched(stream[32:64])
         eng = sess._impl.impl
@@ -3038,17 +3093,19 @@ def patched_attention(fn):
 
 
 def capture_forms(cfg, params, tokens, cache, first, pos: int, capture: FlashCapture) -> None:
-    """Run the path's first prefill (on ``tokens``) and first decode step
-    (position ``pos``, fed ``first``) again under ``capture``, to keep the
-    operands K5 got there.  It runs after the main path's launches, times
-    and peak memory are read, so the copies are in none of them; the decode
-    step rewrites cache position ``pos`` with the values it holds."""
+    """Run the path's first prefill (on ``tokens``; none when ``tokens`` is
+    None) and first decode step (position ``pos``, fed ``first``) again
+    under ``capture``, to keep the operands K5 got there.  It runs after the
+    main path's launches, times and peak memory are read, so the copies are
+    in none of them; the decode step rewrites cache position ``pos`` with
+    the values it holds."""
     import torch
 
     from repro_torch.configs import lm_harness as H
 
     with patched_attention(capture):
-        H.make_prefill(cfg)(params, tokens)
+        if tokens is not None:
+            H.make_prefill(cfg)(params, tokens)
         H.make_decode(cfg)(params, cache, first, torch.full((first.shape[0],), pos, dtype=torch.long,
                                                              device=first.device))
     torch.cuda.synchronize()
@@ -3206,57 +3263,173 @@ def lm_profile(cfg, params, tokens, cache, tok, pos: int, tag: str) -> dict:
             wall = time.perf_counter() - t0
         del res
         OUT_DIR.mkdir(parents=True, exist_ok=True)
-        traced = device_busy(prof, OUT_DIR / f"chip_smoke_{tag}_{name}_trace.json", k5=True)
+        traced = device_busy(prof, OUT_DIR / f"chip_smoke_{tag}_{name}_trace.json", k5=True,
+                             ranges=PROFILE_RANGES)
         traced["wall_ms"] = wall * 1e3
         traced["device_idle_share"] = 1.0 - traced["device_busy_ms"] / traced["wall_ms"]
         out[name] = traced
     return out
 
 
-def lm_compare(cfg, params, tokens, cache, gen, logits_k, last_k, start: int) -> dict:
-    """The kernel path's logits against the plain path's (attention through
-    ``chunked_attention``) on the same inputs: the prefill's last logits,
-    then the decode steps teacher-forced with the kernel run's tokens
-    (``cache`` is reused: every position a plain step reads, the plain run
-    has written).  K5 must launch no time."""
+def teacher_forced(cfg, params, tokens, cache, gen, steps: int, start: int, attention=None):
+    """The prefill on ``tokens`` (none when None; its cache written into
+    ``cache``), then ``steps`` decode steps from position ``start`` fed
+    ``gen[0..steps-1]``, with the transformer's attention routed to
+    ``attention`` (default: K5).  Returns (the prefill's last logits or
+    None, the steps' logits)."""
+    with contextlib.ExitStack() as stack:
+        if attention is not None:
+            stack.enter_context(patched_attention(attention))
+        last = None
+        if tokens is not None:
+            last, pcache, _ = lm_prefill(cfg, params, tokens)
+            copy_prefill_cache(cfg, cache, pcache)
+            del pcache
+        logits, _ = lm_decode(cfg, params, cache, gen[0], start, steps, feed=gen[:steps])
+    return last, logits
+
+
+def logit_agreement(gen, last_k, logits_k, last_p, logits_p) -> dict:
+    """Path p's logits against path k's: the largest differences, and how
+    often p's top-1 is k's greedy token (``gen``: the token each logits row
+    chose on path k)."""
     import torch
 
-    from repro_torch.kernels import flash_attn as K5
-
-    n0 = K5.LAUNCHES
-    with patched_attention(plain_attention):
-        if tokens is not None:
-            last_p, pcache, _ = lm_prefill(cfg, params, tokens)
-            for c, p in zip(cache, pcache):
-                c[:, :, :, : p.shape[3]] = p
-            del pcache
-        logits_p, _ = lm_decode(cfg, params, cache, gen[0], start, len(logits_k), feed=gen[:-1])
-    if K5.LAUNCHES != n0:
-        raise AssertionError("the plain path launched flash_attention")
-    pairs = ([(last_k, last_p)] if tokens is not None else []) + list(zip(logits_k, logits_p))
-    preds = ([(gen[0], last_p)] if tokens is not None else []) + list(zip(gen[1:], logits_p))
+    pairs = ([(last_k, last_p)] if last_k is not None else []) + list(zip(logits_k, logits_p))
+    preds = ([(gen[0], last_p)] if last_k is not None else []) + list(zip(gen[1:], logits_p))
     scale = max(float(k.float().abs().max()) for k, _ in pairs)
     agree = [float((torch.argmax(p, dim=-1) == g).float().mean()) for g, p in preds]
     out = {"max_abs_logit": scale,
            "decode_logits_max_abs_diff": max(max_abs_diff(k.float(), p.float()) for k, p in zip(logits_k, logits_p)),
            "teacher_forced_top1_agreement": float(np.mean(agree)),
            "teacher_forced_predictions": int(sum(g.numel() for g, _ in preds))}
-    if tokens is not None:
+    if last_k is not None:
         out["prefill_last_logits_max_abs_diff"] = max_abs_diff(last_k.float(), last_p.float())
     out["logits_max_abs_diff"] = max(max_abs_diff(k.float(), p.float()) for k, p in pairs)
     out["logits_rel_diff"] = out["logits_max_abs_diff"] / scale
     return out
 
 
+class RouteTape:
+    """Wraps ``models.moe.topk_routing``: in mode ``"record"`` it keeps the
+    top-k expert indices of every call, in order; in mode ``"replay"`` it
+    hands the recorded indices back in the same order, the gates a softmax
+    of the call's own logits at them (as ``topk_routing``'s), so a second
+    run takes the first run's routes; otherwise it only calls through."""
+
+    def __init__(self, fn):
+        self.fn, self.mode, self.idx, self.pos = fn, None, [], 0
+
+    def __call__(self, logits, k: int):
+        import torch
+
+        if self.mode == "replay":
+            idx = self.idx[self.pos]
+            self.pos += 1
+            return torch.softmax(torch.gather(logits, -1, idx).float(), dim=-1), idx
+        gates, idx = self.fn(logits, k)
+        if self.mode == "record":
+            self.idx.append(idx.clone())
+        return gates, idx
+
+
+def lm_compare(cfg, params, tokens, cache, gen, logits_k, last_k, start: int, *, routes: bool = False) -> dict:
+    """The kernel path's logits against the plain path's (attention through
+    ``chunked_attention``) on the same inputs: the prefill's last logits,
+    then the decode steps teacher-forced with the kernel run's tokens
+    (``cache`` is reused: every position a plain step reads, the plain run
+    has written).  K5 must launch no time on a plain path.
+
+    With ``routes`` (an MoE), the same once more with the experts forced
+    too (:class:`RouteTape`): the kernel path re-run teacher-forced records
+    every layer's routes and the plain path replays them, so the two part
+    only where their values do; ``q_scale`` then holds the forced plain
+    path with K5's float32 q scaling (``flash_attention_plain``) against
+    ``chunked_attention``'s bf16 scaling, the difference the reference's
+    rounding of q * D**-0.5 makes at D = 128.  Free routing is reported,
+    with the share of tokens whose experts differ layer by layer: one bf16
+    rounding moves a token at a top-k boundary to another expert, and the
+    move spreads over the layers."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import moe
+
+    steps = len(logits_k)
+
+    def plain(attention):
+        n0 = K5.LAUNCHES
+        got = teacher_forced(cfg, params, tokens, cache, gen, steps, start, attention)
+        if K5.LAUNCHES != n0:
+            raise AssertionError("the plain path launched flash_attention")
+        return got
+
+    if not routes:
+        return logit_agreement(gen, last_k, logits_k, *plain(plain_attention))
+    free = RouteTape(moe.topk_routing)
+    with patched(moe, "topk_routing", free):
+        free.mode = "record"
+        out = logit_agreement(gen, last_k, logits_k, *plain(plain_attention))
+    tape = RouteTape(moe.topk_routing)
+    f32_scale = lambda q, k, v, *, causal=True: K5.flash_attention_plain(q, k, v, causal=causal)  # noqa: E731
+    with patched(moe, "topk_routing", tape):
+        tape.mode = "record"
+        last_r, logits_r = teacher_forced(cfg, params, tokens, cache, gen, steps, start)
+        tape.mode = "replay"
+        forced = plain(plain_attention)
+        tape.pos = 0
+        forced_f32 = plain(f32_scale)
+        tape.mode = None
+    out["free_routing_top1_agreement"] = out["teacher_forced_top1_agreement"]
+    # the first forward call's layers (the prefill's, else the first decode
+    # step's): the share of tokens whose expert set differs between the
+    # kernel path and the free plain path
+    out["free_routes_differ_by_layer"] = [
+        float((torch.sort(a, dim=-1).values != torch.sort(b, dim=-1).values).any(dim=-1).float().mean())
+        for a, b in zip(tape.idx[:cfg.num_layers], free.idx[:cfg.num_layers])]
+    out["routes_forced"] = logit_agreement(gen, last_r, logits_r, *forced)
+    out["routes_forced"]["routing_calls"] = len(tape.idx)
+    out["kernel_rerun_bit_equal"] = all(bool((a == b).all()) for a, b in zip(logits_r, logits_k)) and (
+        last_k is None or bool((last_r == last_k).all()))
+    gen_f = [None if forced_f32[0] is None else torch.argmax(forced_f32[0], dim=-1)] + [
+        torch.argmax(lg, dim=-1) for lg in forced_f32[1]]
+    q = logit_agreement(gen_f, forced_f32[0], forced_f32[1], *forced)
+    out["q_scale"] = {"what": "plain path, routes forced: bf16 q scaling (chunked_attention) against "
+                              "float32 (flash_attention_plain, K5's)",
+                      "logits_max_abs_diff": q["logits_max_abs_diff"], "logits_rel_diff": q["logits_rel_diff"],
+                      "top1_agreement": q["teacher_forced_top1_agreement"]}
+    return out
+
+
+def copy_prefill_cache(cfg, cache, pcache) -> None:
+    """Write a prefill's stacked cache into the head of a decode cache along
+    its position axis (GQA keys and values; MLA's latents)."""
+    from repro_torch.models import transformer as tf
+
+    axis = tf.cache_seq_axis(cfg)
+    for c, p in zip(cache, pcache):
+        c.narrow(axis, 0, p.shape[axis]).copy_(p)
+
+
+def k5_calls(cfg, calls: int) -> int:
+    """K5's launches for ``calls`` forward calls: one a layer a call for
+    GQA; none for MLA, whose attention is ``chunked_attention``."""
+    return cfg.num_layers * calls if cfg.attention == "gqa" else 0
+
+
 def lm_prefill_decode_phase(cfg, params, *, batch: int, prompt: int, steps: int, tag: str,
-                            device, capture: FlashCapture | None = None) -> dict:
+                            device, capture: FlashCapture | None = None, tally=None,
+                            compare: bool = True) -> tuple[dict, dict]:
     """``make_prefill`` on batch × prompt random tokens, then ``steps``
     greedy ``make_decode`` steps against a cache of prompt + steps
     positions (the prefill's cache copied in); K5's count zeroed just before
-    and read just after, and it must equal layers × calls.  Then, with
-    ``capture``, K5's operands of the first prefill and decode step
-    (:func:`capture_forms`), one profiled prefill and decode step, and the
-    plain path on the same inputs."""
+    and read just after, and it must equal layers × calls (none for MLA).
+    ``tally`` (a :class:`MoeTap`) has its ``phase`` set to ``"prefill"``
+    and ``"decode"`` around the two.  Then, with ``capture``, K5's operands
+    of the first prefill and decode step (:func:`capture_forms`), one
+    profiled prefill and decode step, and, with ``compare``, the plain path
+    on the same inputs.  Returns the phase's fields and the run (tokens,
+    greedy tokens, logits, the decode cache)."""
     import torch
 
     from repro_torch.kernels import flash_attn as K5
@@ -3266,18 +3439,23 @@ def lm_prefill_decode_phase(cfg, params, *, batch: int, prompt: int, steps: int,
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))).to(device)
     torch.cuda.reset_peak_memory_stats()
     K5.reset_launches()  # ---- the main path starts here
+    if tally is not None:
+        tally.phase = "prefill"
     last, pcache, prefill_s = lm_prefill(cfg, params, tokens)
     cache = tf.init_cache(cfg, batch, prompt + steps, device=device)
-    for c, p in zip(cache, pcache):
-        c[:, :, :, :prompt] = p
+    copy_prefill_cache(cfg, cache, pcache)
     del pcache
     first = torch.argmax(last, dim=-1)
+    if tally is not None:
+        tally.phase = "decode"
     logits, step_ms = lm_decode(cfg, params, cache, first, prompt, steps)
     launches = K5.LAUNCHES  # ---- and ends here
+    if tally is not None:
+        tally.phase = None
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.num_layers * (1 + steps):
+    if launches != k5_calls(cfg, 1 + steps):
         raise AssertionError(f"{tag}: {launches} flash_attention launches for {cfg.num_layers} layers x "
-                             f"{1 + steps} calls")
+                             f"{1 + steps} calls ({cfg.attention})")
     if capture is not None:
         capture_forms(cfg, params, tokens, cache, first, prompt, capture)
     gen = [first] + [torch.argmax(lg, dim=-1) for lg in logits]
@@ -3291,10 +3469,12 @@ def lm_prefill_decode_phase(cfg, params, *, batch: int, prompt: int, steps: int,
            "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
            "decode_step_ms_p99": float(np.percentile(step_ms, 99)), "decode_step_ms": step_ms,
            "peak_device_memory": peak, "launches": launches,
-           "launches_expected": f"{cfg.num_layers} layers x {1 + steps} calls",
+           "launches_expected": f"{cfg.num_layers} layers x {1 + steps} calls" if cfg.attention == "gqa"
+           else "none: MLA attention is chunked_attention",
            "traced": traced}
-    out["vs_plain"] = lm_compare(cfg, params, tokens, cache, gen, logits, last, prompt)
-    return out
+    if compare:
+        out["vs_plain"] = lm_compare(cfg, params, tokens, cache, gen, logits, last, prompt, routes=cfg.moe)
+    return out, {"tokens": tokens, "gen": gen, "logits": logits, "last": last, "cache": cache}
 
 
 def main_lm(device, capture: FlashCapture) -> tuple[dict, dict]:
@@ -3321,7 +3501,9 @@ def main_lm(device, capture: FlashCapture) -> tuple[dict, dict]:
     out = {"arch": arch.name, "dtype": dtype_name(cfg.dtype), "num_params": cfg.num_params(),
            "init_s": init_s,
            "reduced": {"prefill_32k.global_batch": "32 -> 8", "prefill_32k.seq_len": "32768 -> 4096"}}
-    out.update(lm_prefill_decode_phase(cfg, params, **LM_MAIN, tag="lm", device=device, capture=capture))
+    phase, run = lm_prefill_decode_phase(cfg, params, **LM_MAIN, tag="lm", device=device, capture=capture)
+    out.update(phase)
+    del run
     agree = out["vs_plain"]["teacher_forced_top1_agreement"]
     if not agree >= BF16_TOP1_FLOOR:
         raise AssertionError(f"main_lm: the plain path agrees with the kernel path's tokens {agree} of the time")
@@ -3417,11 +3599,538 @@ def main_lm_f32(device, capture: FlashCapture) -> dict:
     cfg = dataclasses.replace(get_arch("llama3.2-1b").full(), dtype=torch.float32)
     params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED + 1), device=device)
     out = {"arch": cfg.name, "dtype": "float32", "allow_tf32": False, "rel_tolerance": F32_LOGIT_REL_TOL}
-    out.update(lm_prefill_decode_phase(cfg, params, **LM_F32, tag="lm_f32", device=device, capture=capture))
+    phase, run = lm_prefill_decode_phase(cfg, params, **LM_F32, tag="lm_f32", device=device, capture=capture)
+    out.update(phase)
+    del run
     rel = out["vs_plain"]["logits_rel_diff"]
     if not rel <= F32_LOGIT_REL_TOL:
         raise AssertionError(f"main_lm_f32: logits differ from the plain path by {rel} of the largest")
     del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------- MoE, MLA and MIND
+# the cells' sizes and their cuts (PERF.md §4)
+MOE_MAIN = dict(batch=8, prompt=4096, steps=32)
+MOE_LONG = dict(seq=32768, batch=4, steps=8)
+# minicpm3's decode steps are cut to 16 and 4 (the time limit: on an H100
+# a step of the plain MLA attention takes 0.38-0.46 s at 4k positions and
+# 1.4-1.6 s at 32k)
+MLA_MAIN = dict(batch=8, prompt=4096, steps=16)
+MLA_LONG = dict(seq=32768, batch=4, steps=4)
+MLA_F32 = dict(layers=2, batch=2, prompt=128, steps=4)
+MOE_F32 = dict(layers=4, batch=2, prompt=1024, steps=8)
+# main_mla: decode logits at position t against a forward's at t, over the
+# largest |logit|: the bfloat16 limit of the port's CUDA-vs-plain tests
+# (tests/test_torch_transformer.py)
+BF16_LOGIT_REL_TOL = 5e-2
+# main_mind: the card's serve_p99 scores against the CPU's (float32, TF32
+# off), relative, with an absolute floor of the same share of the largest
+# |score| (a max over interests of 64-term dot products lands near zero
+# for some candidates, where a relative limit alone says nothing)
+MIND_RTOL = 1e-5
+# the profiler ranges the transformer and the MoE FFN open
+PROFILE_RANGES = ("attention", "mlp", "moe.dispatch", "moe.experts", "moe.combine", "moe.aux")
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, fn):
+    """Set ``obj.name`` to ``fn`` for the duration."""
+    old = getattr(obj, name)
+    setattr(obj, name, fn)
+    try:
+        yield fn
+    finally:
+        setattr(obj, name, old)
+
+
+class MoeTap:
+    """Taps ``models.moe``'s ``dispatch_indices`` and ``topk_routing``,
+    calling both unchanged.  While ``phase`` is set (the timed run) it adds
+    up on the device the choices the dispatch drops, by phase; while it is
+    None it keeps a copy of the router logits of the first ``topk_routing``
+    call at each token count (layer 0 of a prefill, of a decode step)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.phase = moe, None
+        self.dispatch_fn, self.routing_fn = moe.dispatch_indices, moe.topk_routing
+        self.drops: dict[str, list] = {}
+        self.logits: dict[int, object] = {}
+
+    def dispatch(self, idx, num_experts: int, capacity: int):
+        slot = self.dispatch_fn(idx, num_experts, capacity)
+        if self.phase is not None:
+            self.drops.setdefault(self.phase, []).append(((slot < 0).sum(), slot.numel()))
+        return slot
+
+    def routing(self, logits, k: int):
+        if self.phase is None and logits.shape[0] not in self.logits:
+            self.logits[logits.shape[0]] = logits.clone()
+        return self.routing_fn(logits, k)
+
+    @contextlib.contextmanager
+    def installed(self):
+        with patched(self.moe, "dispatch_indices", self.dispatch), \
+                patched(self.moe, "topk_routing", self.routing):
+            yield self
+
+    def dropped(self) -> dict:
+        """Per phase: choices made, dropped, and the dropped share."""
+        out = {}
+        for phase, calls in self.drops.items():
+            dropped = int(sum(int(d) for d, _ in calls))
+            total = sum(n for _, n in calls)
+            out[phase] = {"calls": len(calls), "choices": total, "dropped": dropped,
+                          "dropped_share": dropped / total}
+        return out
+
+
+def routing_check(cfg, logits) -> dict:
+    """``topk_routing`` and ``dispatch_indices`` on one layer's router
+    logits from the card, run on the card and on a host copy, with the
+    model's capacity for that many tokens: top-k indices, slots and
+    per-expert counts must be equal bit for bit."""
+    import torch
+
+    from repro_torch.models import moe
+
+    t, k = logits.shape[0], cfg.top_k
+    e = cfg.num_experts_padded or cfg.num_experts
+    capacity = max(1, int(cfg.capacity_factor * t * k / cfg.num_experts))
+    got = {}
+    for where, lg in (("cuda", logits), ("cpu", logits.cpu())):
+        gates, idx = moe.topk_routing(lg, k)
+        slot = moe.dispatch_indices(idx, e, capacity)
+        counts = torch.bincount((slot[slot >= 0] // capacity).long(), minlength=e)
+        got[where] = [x.cpu() for x in (idx, slot, counts, gates)]
+    for name, a, b in zip(("idx", "slot", "counts"), got["cuda"], got["cpu"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"routing of {t} tokens: {name} on the card differs from the CPU's "
+                                 f"in {int((a != b).sum())} places")
+    top = torch.sort(logits.cpu(), dim=-1, descending=True).values
+    return {"tokens": t, "capacity": capacity, "idx_slot_counts_equal": True,
+            "gates_max_abs_diff": max_abs_diff(got["cuda"][3], got["cpu"][3]),
+            "top_k_boundary_ties": int((top[:, k - 1] == top[:, k]).sum()),
+            "dropped_choices": int((got["cpu"][1] < 0).sum()),
+            "max_expert_load": int(got["cpu"][2].max())}
+
+
+def init_lm(cfg, device) -> tuple[dict, dict]:
+    """``init_params`` from a CUDA generator seeded ``SEED``: the weights
+    and the init's seconds, the weights' bytes, and the init's peak device
+    memory above what the finished weights hold in the allocator, which may
+    be at most the largest float32 slice ``ParamFactory`` draws at once,
+    rounded up to the allocator's 2 MiB granule (a large block keeps an
+    unsplit remainder under that)."""
+    import torch
+
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    leaves = list(tf._leaves(params))
+    weights = sum(x.numel() * x.element_size() for x in leaves)
+    slice_bytes = 0
+    for x in leaves:
+        row = x[0].numel() if x.ndim > 1 else 1
+        slice_bytes = max(slice_bytes, min(x.shape[0], max(1, cm.ParamFactory.DRAW_ELEMENTS // row)) * row * 4)
+    granule = 2 << 20
+    limit = -(-slice_bytes // granule) * granule
+    if peak - held > limit:
+        raise AssertionError(f"{cfg.name}: init peaked {peak - held} bytes above the {held} the weights hold, "
+                             f"more than one float32 slice ({slice_bytes}, {limit} in 2 MiB granules)")
+    return params, {"init_s": init_s, "init_peak_device_memory": peak, "weights_bytes": weights,
+                    "weights_allocated": held, "init_draw_slice_bytes": slice_bytes,
+                    "init_peak_over_weights": peak - held, "init_peak_over_weights_limit": limit}
+
+
+def lm_serve_check(arch, cfg, device) -> dict:
+    """``lm_serve`` at the CLI defaults (batch 4, prompt 16, gen 8) on
+    ``cfg``, K5's count zeroed before and read after: one launch a layer a
+    step for GQA, none for MLA; the tokens in the vocabulary."""
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.launch import model_serve as MS
+
+    K5.reset_launches()  # ---- lm_serve's path starts here
+    served = MS.lm_serve(arch, 4, 16, 8, cfg=cfg, device=device)
+    launches = K5.LAUNCHES  # ---- and ends here
+    if launches != k5_calls(cfg, 16 + 8 - 1):
+        raise AssertionError(f"lm_serve {cfg.name}: {launches} flash_attention launches")
+    toks = served["tokens"]
+    if tuple(toks.shape) != (4, 8) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"lm_serve {cfg.name} returned tokens {toks}")
+    return {"batch": 4, "prompt_len": 16, "gen": 8, "seconds": served["seconds"],
+            "tokens_per_s": served["tokens_per_s"], "launches": launches, "tokens_row0": toks[0].tolist()}
+
+
+def moe_expert_bytes(cfg) -> int:
+    """Bytes of every layer's expert weights, which each decode step reads
+    whole: the padded experts' three matrices (the capacity is at least
+    one row an expert, so every expert's product runs)."""
+    e = cfg.num_experts_padded or cfg.num_experts
+    return 3 * e * cfg.d_model * cfg.d_ff_expert * 2 * cfg.num_layers
+
+
+def long_decode(cfg, params, *, seq: int, batch: int, steps: int, seed: int, device, tally=None):
+    """``decode_32k`` at ``batch`` rows: ``steps`` ``make_decode`` steps
+    at positions seq - steps .. seq - 1 against a ``seq``-position cache
+    filled from a CUDA generator seeded ``seed``, the first fed a seeded
+    token; K5's count zeroed just before and read just after (one launch a
+    layer a step for GQA, none for MLA), ``tally`` in its ``"decode"``
+    phase, the logits finite.  Returns the decode's fields and the run
+    (cache, the fed token, logits)."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import transformer as tf
+
+    feed = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch,))).to(device)
+    cache = tf.init_cache(cfg, batch, seq, device=device)
+    gen_t = torch.Generator(device=device).manual_seed(seed)
+    for c in cache:
+        c.normal_(generator=gen_t)
+    torch.cuda.reset_peak_memory_stats()
+    K5.reset_launches()  # ---- the main path starts here
+    if tally is not None:
+        tally.phase = "decode"
+    logits, step_ms = lm_decode(cfg, params, cache, feed, seq - steps, steps)
+    launches = K5.LAUNCHES  # ---- and ends here
+    if tally is not None:
+        tally.phase = None
+    if launches != k5_calls(cfg, steps) or not all(bool(torch.isfinite(lg).all()) for lg in logits):
+        raise AssertionError(f"{cfg.name} 32k decode: {launches} flash_attention launches for "
+                             f"{cfg.num_layers} x {steps} ({cfg.attention}), or logits not finite")
+    out = {"seq_len": seq, "decode_batch": batch, "decode_steps": steps,
+           "cache_bytes": sum(c.numel() * c.element_size() for c in cache),
+           "decode_tokens_per_s": batch * steps / (sum(step_ms) / 1e3),
+           "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
+           "decode_step_ms_p99": float(np.percentile(step_ms, 99)), "decode_step_ms": step_ms,
+           "peak_device_memory": torch.cuda.max_memory_allocated(), "launches": launches}
+    return out, {"cache": cache, "feed": feed, "logits": logits}
+
+
+def main_moe(device, capture: FlashCapture) -> dict:
+    """qwen2-moe-a2.7b at its published widths in bf16, weights from a
+    seeded generator: ``make_prefill`` on 8 x 4096 tokens and 32 decode
+    steps (K5 one launch a layer a call), the dropped share of the routed
+    choices in each, the dispatch on the card against the CPU's on one
+    layer's router logits, the plain path teacher-forced beside it with
+    free and with forced routes (top-1 >= :data:`BF16_TOP1_FLOOR` forced,
+    :func:`lm_compare`) and the logit difference the q scaling's rounding
+    makes at D = 128, ``lm_serve`` at the CLI defaults on ``arch.full()``,
+    then :func:`moe_f32_check`."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("qwen2-moe-a2.7b")
+    cfg = arch.full()
+    params, init = init_lm(cfg, device)
+    lm_prefill(cfg, params, torch.zeros((1, 64), dtype=torch.long, device=device))  # warm-up
+    out = {"arch": arch.name, "dtype": dtype_name(cfg.dtype), "num_params": cfg.num_params(),
+           "num_active_params": cfg.num_active_params(), **init,
+           "reduced": {"prefill_32k.global_batch": "32 -> 8", "prefill_32k.seq_len": "32768 -> 4096"}}
+    tap = MoeTap()
+    with tap.installed():
+        phase, run = lm_prefill_decode_phase(cfg, params, **MOE_MAIN, tag="moe", device=device,
+                                             capture=capture, tally=tap)
+    out.update(phase)
+    out["dispatch_dropped"] = tap.dropped()
+    prefill_t = MOE_MAIN["batch"] * MOE_MAIN["prompt"]
+    out["routing_card_vs_cpu"] = {"prefill_layer0": routing_check(cfg, tap.logits[prefill_t]),
+                                  "decode_layer0": routing_check(cfg, tap.logits[MOE_MAIN["batch"]])}
+    agree = out["vs_plain"]["routes_forced"]["teacher_forced_top1_agreement"]
+    if not agree >= BF16_TOP1_FLOOR:
+        raise AssertionError(f"main_moe: with the routes forced, the plain path agrees with the kernel "
+                             f"path's tokens {agree} of the time")
+    del run
+    nbytes = moe_expert_bytes(cfg)
+    out["decode_expert_weight_bytes_per_step"] = nbytes
+    out["decode_weight_bytes_per_step"] = init["weights_bytes"]
+    out["decode_weight_read_bound_ms"] = init["weights_bytes"] / HBM_BYTES_PER_S * 1e3
+    del params
+    torch.cuda.empty_cache()
+    out["lm_serve"] = lm_serve_check(arch, cfg, device)
+    out["float32_vs_plain"] = moe_f32_check(device)
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_f32_check(device) -> dict:
+    """qwen2-moe-a2.7b at full width with its depth cut to
+    ``MOE_F32["layers"]``, float32, TF32 off: the kernel path (K5 at D =
+    128 in float32, the dispatch on the card) against the plain path
+    (``chunked_attention``) on the same weights, prefill
+    ``MOE_F32["batch"]`` x ``MOE_F32["prompt"]`` and ``MOE_F32["steps"]``
+    greedy decode steps, teacher-forced; logits within
+    :data:`F32_LOGIT_REL_TOL` of the largest |logit|.  In float32 a
+    rounding difference almost never crosses a top-k boundary, so the
+    routes agree without forcing."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = MOE_F32
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b").full(), num_layers=c["layers"], dtype=torch.float32)
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED + 1), device=device)
+    out = {"layers": c["layers"], "dtype": "float32", "allow_tf32": False, "rel_tolerance": F32_LOGIT_REL_TOL}
+    phase, run = lm_prefill_decode_phase(cfg, params, batch=c["batch"], prompt=c["prompt"], steps=c["steps"],
+                                         tag="moe_f32", device=device)
+    del run
+    out.update({k: phase[k] for k in ("batch", "prompt_len", "decode_steps", "launches", "vs_plain")})
+    rel = phase["vs_plain"]["logits_rel_diff"]
+    if not rel <= F32_LOGIT_REL_TOL:
+        raise AssertionError(f"main_moe float32: logits differ from the plain path by {rel} of the largest")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def main_moe_long(device, capture: FlashCapture) -> dict:
+    """qwen2-moe-a2.7b's ``decode_32k`` with its batch cut to 4: 8
+    ``make_decode`` steps against a 32768-position cache filled from the
+    generator (positions 32760..32767), K5 one launch a layer a step, the
+    dropped share, and the plain path teacher-forced on the same cache."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("qwen2-moe-a2.7b").full()
+    seq, steps = MOE_LONG["seq"], MOE_LONG["steps"]
+    params, init = init_lm(cfg, device)
+    tap = MoeTap()
+    with tap.installed():
+        decode, run = long_decode(cfg, params, **MOE_LONG, seed=SEED + 9, device=device, tally=tap)
+    cache, feed, logits = run["cache"], run["feed"], run["logits"]
+    capture_forms(cfg, params, None, cache, feed, seq - steps, capture)
+    gen = [feed] + [torch.argmax(lg, dim=-1) for lg in logits]
+    vs_plain = lm_compare(cfg, params, None, cache, gen, logits, None, seq - steps, routes=True)
+    agree = vs_plain["routes_forced"]["teacher_forced_top1_agreement"]
+    if not agree >= BF16_TOP1_FLOOR:
+        raise AssertionError(f"main_moe_long: with the routes forced, the plain path agrees with the kernel "
+                             f"path's tokens {agree} of the time")
+    out = {"arch": cfg.name, "dtype": dtype_name(cfg.dtype), "init_s": init["init_s"],
+           "reduced": {"decode_32k.global_batch": "128 -> 4"}, **decode,
+           "launches_expected": f"{cfg.num_layers} layers x {steps} calls",
+           "dispatch_dropped": tap.dropped(), "vs_plain": vs_plain}
+    del cache, params, logits, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_decode_vs_forward(cfg, params, run, rows: int = 2) -> dict:
+    """Check 1 of ``main_mla``: the decode steps' logits at positions
+    P..P+n-1 (greedy, each fed its predecessor's token) against one forward
+    over the prompt and those tokens (its logits at the same positions) on
+    the first ``rows`` rows, and the prefill's last logits against the
+    forward's at P-1; the largest difference over the largest |logit|
+    within :data:`BF16_LOGIT_REL_TOL`.  A latent written to the wrong place
+    of the cache moves the decode logits by far more."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    tokens, gen = run["tokens"][:rows], run["gen"]
+    p, n = tokens.shape[1], len(run["logits"])
+    ext = torch.cat([tokens, torch.stack([g[:rows] for g in gen[:n]], dim=1)], dim=1)
+    full, cache, _ = tf.forward(cfg, params, ext)
+    del cache
+    pairs = [(run["last"][:rows], full[:, p - 1])] + [(lg[:rows], full[:, p + i]) for i, lg in enumerate(run["logits"])]
+    scale = max(float(b.float().abs().max()) for _, b in pairs)
+    diffs = [max_abs_diff(a.float(), b.float()) for a, b in pairs]
+    agree = float(np.mean([float((torch.argmax(a, -1) == torch.argmax(b, -1)).float().mean()) for a, b in pairs]))
+    rel = max(diffs) / scale
+    if not rel <= BF16_LOGIT_REL_TOL:
+        raise AssertionError(f"main_mla: decode logits differ from the forward's by {rel} of the largest")
+    return {"rows": rows, "positions": f"{p - 1}..{p + n - 1}", "max_abs_logit": scale,
+            "max_abs_diff": max(diffs), "rel_diff": rel, "rel_tolerance": BF16_LOGIT_REL_TOL,
+            "max_abs_diff_by_position": diffs, "top1_agreement": agree}
+
+
+def mla_f32_check(device) -> dict:
+    """Check 2 of ``main_mla``: minicpm3-4b at full width with its depth
+    cut to 2 layers, float32, TF32 off, on the card against the CPU on the
+    same weights (drawn on the CPU, copied over): the prefill's logits at
+    every position and 4 decode steps (each fed a seeded token) within
+    :data:`F32_LOGIT_REL_TOL` of the largest |logit|."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import lm_harness as H
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = MLA_F32
+    cfg = dataclasses.replace(get_arch("minicpm3-4b").full(), num_layers=c["layers"], dtype=torch.float32)
+    host = tf.init_params(cfg, torch.Generator().manual_seed(SEED + 3), device="cpu")
+    dev = {k: ({n: a.to(device) for n, a in v.items()} if isinstance(v, dict) else v.to(device))
+           for k, v in host.items()}
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (c["batch"], c["prompt"])))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (c["steps"], c["batch"])))
+    res = {}
+    for where, params in (("cuda", dev), ("cpu", host)):
+        d = "cpu" if where == "cpu" else device
+        logits, pcache, _ = tf.forward(cfg, params, tokens.to(d))
+        cache = tf.init_cache(cfg, c["batch"], c["prompt"] + c["steps"], device=d)
+        copy_prefill_cache(cfg, cache, pcache)
+        steps = [logits]
+        for i in range(c["steps"]):
+            pos = torch.full((c["batch"],), c["prompt"] + i, dtype=torch.long, device=d)
+            lg, cache = H.make_decode(cfg)(params, cache, feed[i].to(d), pos)
+            steps.append(lg)
+        res[where] = [x.cpu() for x in steps]
+    scale = max(float(x.abs().max()) for x in res["cpu"])
+    diffs = [max_abs_diff(a, b) for a, b in zip(res["cuda"], res["cpu"])]
+    rel = max(diffs) / scale
+    if not rel <= F32_LOGIT_REL_TOL:
+        raise AssertionError(f"main_mla float32: the card's logits differ from the CPU's by {rel} of the largest")
+    del dev, host
+    torch.cuda.empty_cache()
+    return {"layers": c["layers"], "batch": c["batch"], "prompt_len": c["prompt"], "decode_steps": c["steps"],
+            "allow_tf32": False, "max_abs_logit": scale, "prefill_max_abs_diff": diffs[0],
+            "decode_max_abs_diff": max(diffs[1:]), "rel_diff": rel, "rel_tolerance": F32_LOGIT_REL_TOL}
+
+
+def main_mla(device) -> dict:
+    """minicpm3-4b at its published widths in bf16, weights from a seeded
+    generator: ``make_prefill`` on 8 x 4096 and 16 decode steps (MLA runs
+    ``chunked_attention``: K5 launches no time), check 1
+    (:func:`mla_decode_vs_forward`), a batch-4 decode at 32768 positions
+    against a latent cache from the generator, ``lm_serve`` at the CLI
+    defaults on ``arch.full()``, and check 2 (:func:`mla_f32_check`)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("minicpm3-4b")
+    cfg = arch.full()
+    params, init = init_lm(cfg, device)
+    lm_prefill(cfg, params, torch.zeros((1, 64), dtype=torch.long, device=device))  # warm-up
+    out = {"arch": arch.name, "dtype": dtype_name(cfg.dtype), "num_params": cfg.num_params(), **init,
+           "reduced": {"prefill_32k.global_batch": "32 -> 8", "prefill_32k.seq_len": "32768 -> 4096",
+                       "decode_32k.global_batch": "128 -> 4"}}
+    phase, run = lm_prefill_decode_phase(cfg, params, **MLA_MAIN, tag="mla", device=device, compare=False)
+    out.update(phase)
+    for form in ("prefill", "decode_step"):
+        t = phase["traced"][form]
+        out[f"{form}_attention_share"] = t["device_ms_by_range"]["attention"] / t["device_busy_ms"]
+    out["decode_vs_forward"] = mla_decode_vs_forward(cfg, params, run)
+    del run
+    torch.cuda.empty_cache()
+    # decode_32k at batch 4: the latents from the generator
+    out["decode_32k"], run = long_decode(cfg, params, **MLA_LONG, seed=SEED + 10, device=device)
+    del run, params
+    torch.cuda.empty_cache()
+    out["lm_serve"] = lm_serve_check(arch, cfg, device)
+    out["float32_2_layers_card_vs_cpu"] = mla_f32_check(device)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mind_inputs(cfg, batch: int, candidates: int, rng, device, *, slab: bool = False):
+    """``batch`` users' behaviour (a random number of valid items, 1 to
+    ``seq_len``, at the head of each row) and ``candidates`` random items a
+    user, or one slab of them with ``slab``; on ``device``."""
+    import torch
+
+    beh = rng.integers(0, cfg.num_items, (batch, cfg.seq_len))
+    lens = rng.integers(1, cfg.seq_len + 1, batch)
+    valid = np.arange(cfg.seq_len)[None] < lens[:, None]
+    cands = rng.integers(0, cfg.num_items, (candidates,) if slab else (batch, candidates))
+    return tuple(torch.from_numpy(a).to(device) for a in (beh, valid, cands))
+
+
+def main_mind(device) -> dict:
+    """MIND at its published widths (an 8,388,608 x 64 float32 item table,
+    4 interests, 3 routing iterations, 50 behaviours), weights from a seeded
+    generator: ``serve_p99`` (512 users x 1024 candidates) on the card
+    against the CPU on the same weights and inputs (TF32 off; scores within
+    rtol :data:`MIND_RTOL`); then ``serve_p99``, ``serve_bulk`` (262,144 x
+    128) and ``retrieval_cand`` (1 x 1,000,000) through the config's step
+    makers, each timed with CUDA events, and ``mind_serve`` at the CLI
+    defaults on ``arch.full()``."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import mind as C
+    from repro_torch.launch import model_serve as MS
+    from repro_torch.models.recsys import mind as m
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_arch("mind")
+    cfg = arch.full()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = m.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    out = {"arch": arch.name, "dtype": "float32", "allow_tf32": False, "init_s": time.perf_counter() - t0,
+           "num_params": sum(x.numel() for x in params.values()),
+           "table_bytes": params["item_table"].numel() * 4}
+    rng = np.random.default_rng(SEED + 11)
+    serve, retrieve = C.make_serve(cfg), C.make_retrieval(cfg)
+    # the check: serve_p99 on the card against the CPU
+    meta = C.SHAPES["serve_p99"].meta
+    inputs = mind_inputs(cfg, meta["batch"], meta["candidates"], rng, device)
+    got = serve(params, *inputs).cpu()
+    host = {k: v.cpu() for k, v in params.items()}
+    want = serve(host, *(x.cpu() for x in inputs))
+    del host
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    bad = int((err > MIND_RTOL * want.abs() + MIND_RTOL * scale).sum())
+    if bad or tuple(got.shape) != (meta["batch"], meta["candidates"]):
+        raise AssertionError(f"main_mind: {bad} serve_p99 scores differ from the CPU's beyond rtol {MIND_RTOL}")
+    out["serve_p99_card_vs_cpu"] = {"max_abs_diff": float(err.max()), "max_abs_score": scale,
+                                    "max_rel_diff": float((err / want.abs().clamp_min(1e-30)).max()),
+                                    "rtol": MIND_RTOL, "atol": MIND_RTOL * scale, "outside": bad}
+    # the cells: users/s and candidates/s at the shapes' own sizes
+    d = cfg.embed_dim
+    cells = {}
+    for name in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        meta = C.SHAPES[name].meta
+        b, c = meta["batch"], meta["candidates"]
+        slab = C.SHAPES[name].kind == "retrieval"
+        inputs = mind_inputs(cfg, b, c, rng, device, slab=slab)
+        step = retrieve if slab else serve
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        scores = step(params, *inputs)
+        if tuple(scores.shape) != (b, c) or not bool(torch.isfinite(scores).all()):
+            raise AssertionError(f"main_mind {name}: scores of shape {tuple(scores.shape)} or not finite")
+        del scores
+        ms = time_ms(lambda: step(params, *inputs), reps=5 if b * c > 1 << 24 else 20)  # noqa: B023
+        # gathered rows: behaviour and candidates, float32, read once
+        gathered = (b * cfg.seq_len + (c if slab else b * c)) * d * 4
+        cells[name] = {"batch": b, "candidates": c, "ms": ms, "users_per_s": b / (ms / 1e3),
+                       "candidates_per_s": b * c / (ms / 1e3), "gathered_bytes": gathered,
+                       "gather_bound_ms": gathered / HBM_BYTES_PER_S * 1e3,
+                       "peak_device_memory": torch.cuda.max_memory_allocated()}
+        del inputs
+        torch.cuda.empty_cache()
+    out["cells"] = cells
+    del params
+    torch.cuda.empty_cache()
+    served = MS.mind_serve(arch, 4, cfg=cfg, device=device)
+    if tuple(served["scores"].shape) != (4, 64) or not bool(torch.isfinite(served["scores"]).all()):
+        raise AssertionError("mind_serve returned bad scores")
+    out["mind_serve"] = {"batch": 4, "candidates": 64, "seconds": served["seconds"]}
     torch.cuda.empty_cache()
     return out
 
@@ -3521,13 +4230,24 @@ def main() -> None:
     f32_capture = FlashCapture(K5.flash_attention)
     f32_out = main_lm_f32(dev, f32_capture)
     emit("main_lm_f32", **f32_out)
+    moe_capture, moe_long_capture = FlashCapture(K5.flash_attention), FlashCapture(K5.flash_attention)
+    moe_out = main_moe(dev, moe_capture)
+    emit("main_moe", **moe_out)
+    moe_long_out = main_moe_long(dev, moe_long_capture)
+    emit("main_moe_long", **moe_long_out)
+    mla_out = main_mla(dev)
+    emit("main_mla", **mla_out)
+    emit("main_mind", **main_mind(dev))
     flash = {"prefill": flash_real(lm_capture.calls["prefill"]),
              "decode": flash_real(lm_capture.calls["decode"]),
              "prefill_32k": flash_real(long_capture.calls["prefill"]),
              "decode_32k": flash_real(long_capture.calls["decode"]),
              "prefill_f32": flash_real(f32_capture.calls["prefill"]),
-             "decode_f32": flash_real(f32_capture.calls["decode"])}
-    del lm_capture, long_capture, f32_capture
+             "decode_f32": flash_real(f32_capture.calls["decode"]),
+             "moe_prefill": flash_real(moe_capture.calls["prefill"]),
+             "moe_decode": flash_real(moe_capture.calls["decode"]),
+             "moe_decode_32k": flash_real(moe_long_capture.calls["decode"])}
+    del lm_capture, long_capture, f32_capture, moe_capture, moe_long_capture
     torch.cuda.empty_cache()
     flash.update(flash_rows(dev))
     real["bloom_query"] = bloom_real(*real.pop("bloom_filter"), dev)
@@ -3558,9 +4278,13 @@ def main() -> None:
     launches = {k: sum(r["launches"][k] for r in all_runs.values())
                 for k in ("ell_spmv", "fused_sweep", "bloom", "diff_lookup")}
     # K5 over the LM runs, each counted from 0: prefill + decode, lm_serve,
-    # the 32k cell, float32
+    # the 32k cell, float32; qwen2-moe's prefill + decode, lm_serve and 32k
+    # decode; minicpm3's (MLA: none)
     lm_launches = {"lm_prefill_and_decode": lm_out["launches"], "lm_serve": lm_out["lm_serve"]["launches"],
-                   "lm_long": long_out["launches"], "lm_f32": f32_out["launches"]}
+                   "lm_long": long_out["launches"], "lm_f32": f32_out["launches"],
+                   "moe_prefill_and_decode": moe_out["launches"], "moe_serve": moe_out["lm_serve"]["launches"],
+                   "moe_long": moe_long_out["launches"], "mla_prefill_and_decode": mla_out["launches"],
+                   "mla_long": mla_out["decode_32k"]["launches"], "mla_serve": mla_out["lm_serve"]["launches"]}
     k5 = flash["prefill"]
     print(json.dumps({"kernels": [
         {

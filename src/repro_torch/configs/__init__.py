@@ -9,12 +9,14 @@ from __future__ import annotations
 import importlib
 
 _MODULES = {
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "mind": "repro_torch.configs.mind",
 }
 # the reference's other architectures (repro/configs/__init__.py)
 NOT_PORTED = (
-    "qwen2-72b", "minicpm3-4b", "qwen2-moe-a2.7b", "arctic-480b", "pna", "gatedgcn",
-    "dimenet", "equiformer-v2", "mind", "diff-ife",
+    "qwen2-72b", "arctic-480b", "pna", "gatedgcn", "dimenet", "equiformer-v2", "diff-ife",
 )
 
 ARCH_NAMES = list(_MODULES)

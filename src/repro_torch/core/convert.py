@@ -13,9 +13,10 @@ port's tensors on a device (the seed held in int64), and the port's state
 back into the same dict, so a run can move between the two packages
 mid-stream and be compared leaf by leaf.
 
-:func:`transformer_params_from_reference` does the same for a transformer's
+:func:`transformer_params_from_reference` does the same for a model's
 parameter tree (or its decode cache): nested dicts and tuples of numpy
-leaves, the reference's nesting kept, each leaf's dtype kept.
+leaves, the reference's nesting kept, each leaf's dtype kept — every
+transformer family's tree (GQA, MLA, MoE) and MIND's flat float32 dict.
 """
 
 from __future__ import annotations

@@ -15,6 +15,8 @@ input dtype stand where it puts them.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core.engine import resolve_device
@@ -27,7 +29,15 @@ class ParamFactory:
     drawn in float32 (``scale`` defaults to ``fan_in ** -0.5``, fan-in being
     the second-to-last axis), then cast to ``dtype``; or zeros.  ``device``
     defaults to the CUDA device; on ``meta`` the factory only shapes the
-    parameters (no generator needed)."""
+    parameters (no generator needed).
+
+    A leaf is drawn in slices of its leading axis (a layer of a stacked
+    leaf, at most :data:`DRAW_ELEMENTS` values unless one layer holds
+    more), each scaled in place and written into the leaf, so the draw
+    adds one slice's float32 to the finished weights, not two whole
+    float32 copies of the leaf."""
+
+    DRAW_ELEMENTS = 1 << 27  # float32 values drawn at once (512 MiB)
 
     def __init__(self, generator: torch.Generator | None, dtype=torch.float32, device=None) -> None:
         self.generator = generator
@@ -37,12 +47,29 @@ class ParamFactory:
     def param(self, tree: dict, name: str, shape, *, scale=None, zeros=False) -> Tensor:
         if zeros or self.device.type == "meta":
             tree[name] = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        else:
-            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-            s = scale if scale is not None else fan_in**-0.5
-            x = torch.randn(shape, generator=self.generator, dtype=torch.float32, device=self.device)
-            tree[name] = (x * s).to(self.dtype)
-        return tree[name]
+            return tree[name]
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        s = scale if scale is not None else fan_in**-0.5
+        leaf = torch.empty(shape, dtype=self.dtype, device=self.device)
+        row = leaf[0].numel() if len(shape) > 1 else 1
+        step = max(1, self.DRAW_ELEMENTS // max(1, row))
+        for r0 in range(0, shape[0], step):
+            piece = leaf[r0 : r0 + step]
+            x = torch.randn(piece.shape, generator=self.generator, dtype=torch.float32,
+                            device=self.device)
+            piece.copy_(x.mul_(s))
+            del x  # before the next draw: one slice alive at a time
+        tree[name] = leaf
+        return leaf
+
+
+def profile_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler records, else nothing (a decode step opens a few per layer,
+    and the range costs host time even with no profiler on)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def rms_norm(x: Tensor, gamma: Tensor, eps: float = 1e-6) -> Tensor:
@@ -93,7 +120,9 @@ def chunked_attention(
 
     ``q`` is scaled by ``D**-0.5`` in its own dtype before the float32
     cast, where K5 scales in float32: for D = 64 and 16 the scale is a
-    power of two, so the two agree bit for bit.
+    power of two, so the two agree bit for bit; at D = 128 in bfloat16 they
+    differ by up to one bf16 step of a row's largest output
+    (``tests/test_torch_flash_attn.py``, the q-scale test).
     """
     b, hq, sq, d = q.shape
     hkv, sk, dv = v.shape[1], v.shape[2], v.shape[3]

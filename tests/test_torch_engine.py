@@ -354,6 +354,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.launch import model_serve
     from repro_torch.models import common as mcommon
     from repro_torch.models import transformer as ttf
+    from repro_torch.models.recsys import mind
 
     arch = get_arch("llama3.2-1b")
     cfg = arch.smoke()
@@ -361,7 +362,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: ttf.init_cache(cfg, 2, 4),
                  lambda: mcommon.ParamFactory(torch.Generator()),
                  lambda: convert.transformer_params_from_reference({"embed": np.zeros((2, 2), np.float32)}),
-                 lambda: model_serve.lm_serve(arch, 1, 2, 1)):
+                 lambda: model_serve.lm_serve(arch, 1, 2, 1),
+                 lambda: model_serve.mind_serve(get_arch("mind"), 1),
+                 lambda: mind.init_params(get_arch("mind").smoke(), torch.Generator()),
+                 lambda: ttf.init_cache(get_arch("minicpm3-4b").smoke(), 2, 4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert ttf.init_cache(cfg, 2, 4, device="cpu")[0].device == torch.device("cpu")
@@ -393,4 +397,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.models.transformer", "repro_torch.kernels.flash_attn",
             "repro_torch.launch.model_serve", "repro_torch.core.landmark", "repro_torch.planner",
             "repro_torch.planner.cost", "repro_torch.planner.rules",
-            "repro_torch.planner.landmark_rewrite"} <= imported
+            "repro_torch.planner.landmark_rewrite", "repro_torch.models.moe",
+            "repro_torch.models.recsys.mind", "repro_torch.models.recsys.embeddingbag",
+            "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.minicpm3_4b",
+            "repro_torch.configs.mind"} <= imported

@@ -95,6 +95,41 @@ def test_flash_attention_reads_a_strided_cache_prefix(dtype):
     np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[tdt], rtol=TOL[tdt])
 
 
+# the q-scale difference at D = 128, measured on the CPU: the largest
+# absolute difference and the largest of a row's largest difference over
+# its largest |value|, for the prefill and the decode form; both are whole
+# bf16 steps (2^-6 at outputs of 2 to 4, one step of the row's largest)
+Q_SCALE_DIFF_D128 = {"prefill": (2.0**-6, 2.0**-7), "decode": (2.0**-9, 2.0**-7)}
+
+
+@pytest.mark.parametrize("form", ["prefill", "decode"])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_q_scale_difference_between_the_model_and_k5_is_pinned(d, form):
+    """At qwen2-moe's attention shape (16 query and KV heads, bf16) the
+    model's ``chunked_attention``, which scales q by ``D**-0.5`` in q's
+    dtype as the reference does, against ``flash_attention_plain``, which
+    scales in float32 as K5 does.  For D = 16 and 64 the scale is a power
+    of two and the two are bit-equal.  At D = 128 the rounding of q·scale
+    to bf16 moves the outputs by at most :data:`Q_SCALE_DIFF_D128` (one bf16
+    step of a row's largest value); the test fails above it."""
+    from repro_torch.models import common as cm
+
+    sq, causal = (256, True) if form == "prefill" else (1, False)
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+               for shape in ((2, 16, sq, d), (2, 16, 256, d), (2, 16, 256, d)))
+    model = cm.chunked_attention(q, k, v, causal=causal)
+    kernel_plain = K5.flash_attention_plain(q, k, v, causal=causal)
+    if d != 128:
+        assert torch.equal(model, kernel_plain)
+        return
+    diff = (model.float() - kernel_plain.float()).abs()
+    row_rel = float((diff / kernel_plain.float().abs().amax(dim=-1, keepdim=True)).max())
+    max_abs, max_row_rel = Q_SCALE_DIFF_D128[form]
+    assert float(diff.max()) > 0  # the difference is there ...
+    assert float(diff.max()) <= max_abs and row_rel <= max_row_rel  # ... and no larger
+
+
 # (b, hq, hkv, sq, sk): GQA and MQA, sized for the reference's blocks
 GROUPS = {"gqa": (1, 4, 2, 192, 192), "mqa": (1, 4, 1, 32, 96)}
 
@@ -351,3 +386,4 @@ def test_flash_attention_cuda_copies_a_misaligned_view(sq, d, dtype):
         assert float(err.max()) <= TOL[tdt]
     else:
         assert float((err / want.float().abs().amax(dim=-1, keepdim=True)).max()) <= BF16_ROW_REL_TOL
+

@@ -1,18 +1,24 @@
-"""Port parity: the llama3.2-1b serving slice (dense GQA transformer).
+"""Port parity: the transformer family (dense GQA, QKV bias, MLA, MoE).
 
-The smoke config (2 layers, d=64, 4 query / 2 KV heads of 16, float32) runs
-through the reference (``repro/models/transformer.py``, its own jit on the
-CPU) and the port (``repro_torch.models.transformer``, ``device="cpu"``,
+The reference's five LM smoke configs (``qwen2-72b``, ``minicpm3-4b``,
+``llama3.2-1b``, ``qwen2-moe-a2.7b``, ``arctic-480b``: 2 layers, d=64,
+float32; each config's fields copied into the port's ``TransformerConfig``)
+run through the reference (``repro/models/transformer.py``, its own jit on
+the CPU) and the port (``repro_torch.models.transformer``, ``device="cpu"``,
 where attention is the plain ``chunked_attention``) on the same inputs:
 tokens from a numpy seed, weights drawn by the reference's ``init_params``
 and carried across by ``core.convert.transformer_params_from_reference``.
+``qwen2-72b``'s covers the QKV bias, ``minicpm3-4b``'s MLA,
+``qwen2-moe-a2.7b``'s the MoE FFN with the gated shared expert and
+``arctic-480b``'s the dense residual beside the MoE.
 
 Tolerances: the primitives and ``chunked_attention`` at 1e-6 (float32, the
 same operations in another summation order); ``forward`` logits, caches
 and ``decode_step`` over 8 steps at rtol 1e-5, atol 1e-5 (two layers of
-such differences); greedy tokens and the bf16 carry-across exactly.  The
-card's tests (``gpu`` marker) hold the CUDA path, where attention is K5,
-against the CPU's plain path at head dims 16 (the smoke config), 64 and 128.
+such differences), the MoE aux loss at 1e-6; greedy tokens and the bf16
+carry-across exactly.  The card's tests (``gpu`` marker) hold the CUDA
+path, where GQA attention is K5, against the CPU's plain path at head dims
+16 (the smoke config), 64 and 128, and qwen2-moe's smoke config at 128.
 """
 
 import dataclasses
@@ -31,16 +37,25 @@ from repro_torch.models import transformer as tf
 
 ARCH = get_arch("llama3.2-1b")
 RTOL = ATOL = 1e-5
+# the reference's LM architectures (repro/configs/__init__.py)
+LM_ARCHS = ["qwen2-72b", "minicpm3-4b", "llama3.2-1b", "qwen2-moe-a2.7b", "arctic-480b"]
 
 
-def _ref_cfg(dtype="float32"):
-    """The reference's smoke config (the port's numbers, by construction)."""
+def _ref_cfg(dtype="float32", name="llama3.2-1b"):
+    """The reference's smoke config of ``name``."""
     import jax.numpy as jnp
 
     from repro.configs import get_arch as ref_get_arch
 
-    cfg = ref_get_arch("llama3.2-1b").smoke()
+    cfg = ref_get_arch(name).smoke()
     return dataclasses.replace(cfg, dtype=getattr(jnp, dtype))
+
+
+def _port_cfg(ref_cfg):
+    """The port's ``TransformerConfig`` with every field of ``ref_cfg``."""
+    fields = {f.name: getattr(ref_cfg, f.name) for f in dataclasses.fields(ref_cfg)}
+    fields["dtype"] = getattr(torch, np.dtype(ref_cfg.dtype).name)
+    return tf.TransformerConfig(**fields)
 
 
 def _carried(ref_cfg, seed=0):
@@ -60,18 +75,25 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
 
 
 # ------------------------------------------------------------------ configs
-def test_configs_match_the_reference():
+NUM_PARAMS = {"llama3.2-1b": 1_498_482_688, "qwen2-moe-a2.7b": 15_146_452_992,
+              "minicpm3-4b": 4_263_336_448}
+
+
+@pytest.mark.parametrize("name", list(NUM_PARAMS))
+def test_configs_match_the_reference(name):
     from repro.configs import get_arch as ref_get_arch
 
-    ref = ref_get_arch("llama3.2-1b")
-    for port_cfg, ref_cfg in ((ARCH.full(), ref.full()), (ARCH.smoke(), ref.smoke())):
+    arch, ref = get_arch(name), ref_get_arch(name)
+    for port_cfg, ref_cfg in ((arch.full(), ref.full()), (arch.smoke(), ref.smoke())):
         fields = {f.name for f in dataclasses.fields(ref_cfg)}
         assert fields == {f.name for f in dataclasses.fields(port_cfg)}
-        for name in fields - {"dtype"}:
-            assert getattr(port_cfg, name) == getattr(ref_cfg, name), name
+        for field in fields - {"dtype"}:
+            assert getattr(port_cfg, field) == getattr(ref_cfg, field), field
         assert str(port_cfg.dtype).split(".")[-1] == np.dtype(ref_cfg.dtype).name
-    assert ARCH.full().num_params() == ref.full().num_params() == 1_498_482_688
-    assert {k: (s.kind, s.meta) for k, s in ARCH.shapes.items()} == \
+    assert arch.full().num_params() == ref.full().num_params() == NUM_PARAMS[name]
+    assert arch.full().num_active_params() == ref.full().num_active_params()
+    assert (arch.name, arch.family) == (ref.name, ref.family)
+    assert {k: (s.kind, s.meta) for k, s in arch.shapes.items()} == \
         {k: (s.kind, s.meta) for k, s in ref.shapes.items()}
     with pytest.raises(KeyError, match="not ported"):
         get_arch("qwen2-72b")
@@ -105,19 +127,47 @@ def test_init_params_has_the_references_tree_and_distributions():
     assert abs(float(p["embed"].std()) - 1.0) < 0.05
     assert abs(float(p["layers"]["wg"].std()) * 256**0.5 - 1.0) < 0.05
     assert abs(float(p["layers"]["wo_mlp"].std()) * 512**0.5 - 1.0) < 0.05
-    with pytest.raises(NotImplementedError):
-        tf.init_params(dataclasses.replace(cfg, attention="mla"), None, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tf.init_params(dataclasses.replace(cfg, moe=True), None, device="cpu")
+    # every reference LM smoke config's tree: MLA, MoE, shared expert, dense residual
+    for name in LM_ARCHS:
+        ref_cfg = _ref_cfg(name=name)
+        want = jax.eval_shape(lambda: rtf.init_params(ref_cfg, jax.random.PRNGKey(0)))  # noqa: B023
+        assert shapes(tf.init_params(_port_cfg(ref_cfg), torch.Generator().manual_seed(0),
+                                     device="cpu")) == shapes(want), name
+    moe_cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b").smoke(), d_model=256)
+    p = tf.init_params(moe_cfg, torch.Generator().manual_seed(2), device="cpu")
+    assert abs(float(p["layers"]["we_g"].std()) * 256**0.5 - 1.0) < 0.05
+    assert abs(float(p["layers"]["we_o"].std()) * 32**0.5 - 1.0) < 0.05
+    assert not p["layers"]["shared_gate"].any()
 
 
-def test_bf16_carry_across_is_bit_exact():
-    _, port = _carried(_ref_cfg("bfloat16"), seed=3)
+def test_param_factory_draws_a_leaf_in_slices():
+    """A leaf larger than one draw is filled slice by slice: one layer of a
+    stacked leaf at a time (or more, up to ``DRAW_ELEMENTS``), each slice
+    scaled and cast; the draws follow the generator in order."""
+    f = cm.ParamFactory(torch.Generator().manual_seed(5), dtype=torch.bfloat16, device="cpu")
+    f.DRAW_ELEMENTS = 24  # two 3 x 4 layers a draw
+    tree: dict = {}
+    got = f.param(tree, "w", (5, 3, 4))
+    g = torch.Generator().manual_seed(5)
+    want = torch.cat([torch.randn((n, 3, 4), generator=g) * 3**-0.5 for n in (2, 2, 1)])
+    assert got.dtype == torch.bfloat16 and tree["w"] is got
+    torch.testing.assert_close(got, want.to(torch.bfloat16), rtol=0, atol=0)
+    f.DRAW_ELEMENTS = 1  # less than a layer: still one layer a draw
+    got = f.param(tree, "v", (2, 3, 4), scale=1.0)
+    want = torch.cat([torch.randn((1, 3, 4), generator=g) for _ in range(2)])
+    torch.testing.assert_close(got, want.to(torch.bfloat16), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_bf16_carry_across_is_bit_exact(name):
+    """The generic converter carries every family's tree (MLA, MoE, dense
+    residual) leaf for leaf."""
+    _, port = _carried(_ref_cfg("bfloat16", name), seed=3)
     import jax
 
     from repro.models import transformer as rtf
 
-    ref = rtf.init_params(_ref_cfg("bfloat16"), jax.random.PRNGKey(3))
+    ref = rtf.init_params(_ref_cfg("bfloat16", name), jax.random.PRNGKey(3))
     flat_ref = jax.tree_util.tree_leaves_with_path(ref)
     assert len(flat_ref) == len(list(tf._leaves(port)))
     for path, leaf in flat_ref:
@@ -188,29 +238,36 @@ def test_chunked_attention_matches_the_reference(sq, sk, causal, q_offset, valid
 
 
 # ------------------------------------------------------------------ the model
-def test_forward_matches_the_reference():
-    """Prefill: logits and the stacked cache, and make_prefill's last row."""
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_forward_matches_the_reference(name):
+    """Prefill: logits, the stacked cache (GQA keys and values; MLA's
+    latents), the summed MoE aux loss, and make_prefill's last row."""
     import jax.numpy as jnp
 
     from repro.configs import lm_harness as RH
     from repro.models import transformer as rtf
 
-    ref_cfg = _ref_cfg()
+    ref_cfg = _ref_cfg(name=name)
+    cfg = _port_cfg(ref_cfg)
     rparams, params = _carried(ref_cfg)
     tokens = np.random.default_rng(5).integers(0, 256, size=(2, 20))
-    want_logits, want_cache, _ = rtf.forward(ref_cfg, rparams, jnp.asarray(tokens, jnp.int32))
-    logits, cache, aux = tf.forward(ARCH.smoke(), params, torch.from_numpy(tokens))
+    want_logits, want_cache, want_aux = rtf.forward(ref_cfg, rparams, jnp.asarray(tokens, jnp.int32))
+    logits, cache, aux = tf.forward(cfg, params, torch.from_numpy(tokens))
     _close(logits, want_logits)
     for got, want in zip(cache, want_cache):
-        assert tuple(got.shape) == want.shape == (2, 2, 2, 20, 16)
+        assert tuple(got.shape) == want.shape
+        assert got.shape[tf.cache_seq_axis(cfg)] == 20
         _close(got, want)
-    assert float(aux) == 0.0
-    last, _ = H.make_prefill(ARCH.smoke())(params, torch.from_numpy(tokens))
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6, atol=1e-6)
+    assert (float(aux) > 0) == cfg.moe
+    last, _ = H.make_prefill(cfg)(params, torch.from_numpy(tokens))
     want_last, _ = RH.make_prefill(ref_cfg)(rparams, jnp.asarray(tokens, jnp.int32))
     _close(last, want_last)
 
 
-def test_decode_steps_match_the_reference():
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_decode_steps_match_the_reference(name):
     """Eight decode steps from an empty cache: logits of every step and the
     final cache (the port's, updated in place)."""
     import jax
@@ -219,9 +276,9 @@ def test_decode_steps_match_the_reference():
     from repro.configs import lm_harness as RH
     from repro.models import transformer as rtf
 
-    ref_cfg = _ref_cfg()
+    ref_cfg = _ref_cfg(name=name)
     rparams, params = _carried(ref_cfg, seed=1)
-    cfg = ARCH.smoke()
+    cfg = _port_cfg(ref_cfg)
     tokens = np.random.default_rng(6).integers(0, 256, size=(8, 3))
     rstep = jax.jit(RH.make_decode(ref_cfg))
     step = H.make_decode(cfg)
@@ -271,7 +328,8 @@ def test_attention_takes_only_its_two_forms():
 
 
 # ------------------------------------------------------------------ serving
-def test_serve_loop_gives_the_references_greedy_tokens():
+@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b"])
+def test_serve_loop_gives_the_references_greedy_tokens(name):
     """The reference's loop (``model_serve.py`` ``lm_serve``, prompt fed
     through decode steps, then greedy argmax) on the same weights and
     prompts: the same tokens."""
@@ -280,7 +338,7 @@ def test_serve_loop_gives_the_references_greedy_tokens():
 
     from repro.models import transformer as rtf
 
-    ref_cfg = _ref_cfg()
+    ref_cfg = _ref_cfg(name=name)
     rparams, params = _carried(ref_cfg)
     batch, prompt_len, gen = 4, 16, 8
     prompts = np.random.default_rng(0).integers(0, 256, (batch, prompt_len))
@@ -294,7 +352,7 @@ def test_serve_loop_gives_the_references_greedy_tokens():
         else:
             tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
             want.append(np.asarray(tok))
-    got = MS.decode_loop(ARCH.smoke(), params, torch.from_numpy(prompts), gen)
+    got = MS.decode_loop(get_arch(name).smoke(), params, torch.from_numpy(prompts), gen)
     np.testing.assert_array_equal(got.numpy(), np.stack(want, axis=1))
 
 
@@ -314,23 +372,45 @@ def _need_cuda():
 
 def _cuda_cfg(name, dtype):
     """The configs K5 runs on the card in this test: the smoke config itself
-    (head dim 16), and variants at head dims 64 and 128."""
+    (head dim 16), variants at head dims 64 and 128, and qwen2-moe's smoke
+    config at head dim 128 (its QKV bias, top-2 of 8 experts, gated shared
+    expert)."""
     smoke = dataclasses.replace(ARCH.smoke(), dtype=dtype)
     if name == "smoke":
         return smoke
     if name == "d64":
         return dataclasses.replace(smoke, d_model=256, num_heads=4, num_kv_heads=2, head_dim=64, d_ff=512)
+    if name == "moe_d128":
+        return dataclasses.replace(get_arch("qwen2-moe-a2.7b").smoke(), dtype=dtype, d_model=256,
+                                   head_dim=128)
     return dataclasses.replace(smoke, d_model=256, num_heads=4, num_kv_heads=2, head_dim=128, d_ff=512)
 
 
+def _assert_logits_close(cfg, got, want, scale, tol):
+    """Logits over ``scale`` within ``tol``.  A bfloat16 MoE config is held
+    row by row: where the two paths' bf16 router logits round apart at a
+    top-k boundary, a token takes another expert and its row moves by a
+    whole expert's output (a CPU emulation of K5's float32 q scaling moved
+    one seed's logits by 8.3e-2 so), so at least 90% of the rows must be
+    within ``tol`` (the floor ``chip_smoke.py`` holds qwen2-moe's top-1
+    agreement to)."""
+    got, want = got.float().cpu() / scale, want.float() / scale
+    if cfg.moe and cfg.dtype == torch.bfloat16:
+        rows = ((got - want).abs().amax(dim=-1) <= tol).float().mean()
+        assert float(rows) >= 0.9, float(rows)
+    else:
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("cfg_name", ["smoke", "d64", "d128"])
+@pytest.mark.parametrize("cfg_name", ["smoke", "d64", "d128", "moe_d128"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_forward_and_decode_match_the_plain_path(dtype, cfg_name):
     """The card's path (K5 for prefill and decode) against the CPU's
     (chunked_attention) on the same weights, at head dims 16 (the smoke
-    config), 64 and 128: logits at 2e-5 relative in float32 (TF32 off) and
-    at 5e-2 in bfloat16.  At D = 128 the scale 128**-0.5 is no power of two:
+    config), 64 and 128, and qwen2-moe's smoke config at 128: logits at
+    2e-5 relative in float32 (TF32 off) and at 5e-2 in bfloat16 (the MoE
+    config row by row, :func:`_assert_logits_close`).  At D = 128 the scale 128**-0.5 is no power of two:
     chunked_attention rounds q * scale to bfloat16 where K5 scales the
     float32 scores, so in bfloat16 the two paths also differ by that
     rounding of q, which the bfloat16 limit holds (in float32 both scale in
@@ -348,7 +428,7 @@ def test_cuda_forward_and_decode_match_the_plain_path(dtype, cfg_name):
     assert K5.LAUNCHES == n + cfg.num_layers
     want, wcache, _ = tf.forward(cfg, params, tokens)
     scale = float(want.float().abs().max())
-    torch.testing.assert_close(got.float().cpu() / scale, want.float() / scale, atol=tol, rtol=0)
+    _assert_logits_close(cfg, got, want, scale, tol)
     cache = tuple(torch.zeros((cfg.num_layers, 2, cfg.num_kv_heads, 80, cfg.head_dim), dtype=dtype)
                   for _ in range(2))
     for c, w in zip(cache, wcache):
@@ -361,4 +441,4 @@ def test_cuda_forward_and_decode_match_the_plain_path(dtype, cfg_name):
         got, _ = tf.decode_step(cfg, dparams, dcache, tok.cuda(), pos.cuda())
         assert K5.LAUNCHES == n + cfg.num_layers
         want, _ = tf.decode_step(cfg, params, cache, tok, pos)
-        torch.testing.assert_close(got.float().cpu() / scale, want.float() / scale, atol=tol, rtol=0)
+        _assert_logits_close(cfg, got, want, scale, tol)
