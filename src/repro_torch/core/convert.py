@@ -14,9 +14,11 @@ back into the same dict, so a run can move between the two packages
 mid-stream and be compared leaf by leaf.
 
 :func:`transformer_params_from_reference` does the same for a model's
-parameter tree (or its decode cache): nested dicts and tuples of numpy
-leaves, the reference's nesting kept, each leaf's dtype kept — every
-transformer family's tree (GQA, MLA, MoE) and MIND's flat float32 dict.
+parameter tree (or its decode cache): nested dicts, lists, tuples and named
+tuples of numpy leaves, the reference's nesting kept, each leaf's dtype
+kept — every transformer family's tree (GQA, MLA, MoE), MIND's flat float32
+dict and the GNNs' trees (dicts and lists of float32 leaves).
+:func:`adamw_state_from_reference` carries an optimizer state across.
 """
 
 from __future__ import annotations
@@ -132,6 +134,20 @@ def transformer_params_from_reference(tree, device=None):
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: transformer_params_from_reference(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a named tuple takes its fields positionally
+        return type(tree)(*(transformer_params_from_reference(v, device) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(transformer_params_from_reference(v, device) for v in tree)
     return _leaf_from_numpy(tree, device)
+
+
+def adamw_state_from_reference(state, device=None):
+    """The reference's ``AdamWState(step, mu, nu)`` pulled to numpy as the
+    port's :class:`~repro_torch.optim.adamw.AdamWState` (``step`` an int32
+    scalar tensor) on ``device``."""
+    from repro_torch.optim.adamw import AdamWState
+
+    device = resolve_device(device)
+    return AdamWState(step=_leaf_from_numpy(np.asarray(state.step, np.int32), device),
+                      mu=transformer_params_from_reference(state.mu, device),
+                      nu=transformer_params_from_reference(state.nu, device))

@@ -47,11 +47,14 @@ def reset_launches() -> None:
     LAUNCHES = 0
 
 
-def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> Tensor:
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                          scale: float | None = None) -> Tensor:
     """Plain version: a direct softmax per row in float32 with K5's mask,
     GQA map, ``-1e30`` masking and ``1e-30`` floor, over blocks of query
-    rows so the score matrix stays under 1 GiB."""
+    rows so the score matrix stays under 1 GiB.  q is multiplied by
+    ``scale`` (default ``D**-0.5``) in float32, as the kernel does."""
     b, hq, sq, d = q.shape
+    scale = 1.0 / d**0.5 if scale is None else scale
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
     kf, vf = k.float(), v.float()
@@ -61,7 +64,7 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = Tru
     for r0 in range(0, sq, rows_per_block):
         r1 = min(sq, r0 + rows_per_block)
         # query heads grouped onto their KV head: [B, Hkv, G * rows, D]
-        qb = (q[:, :, r0:r1].float() * (1.0 / d**0.5)).reshape(b, hkv, group * (r1 - r0), d)
+        qb = (q[:, :, r0:r1].float() * scale).reshape(b, hkv, group * (r1 - r0), d)
         s = qb @ kf.transpose(-1, -2)
         if causal:
             rows = torch.arange(r0, r1, device=q.device).repeat(group)
@@ -72,8 +75,13 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = Tru
     return out
 
 
-def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> Tensor:
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    scale: float | None = None) -> Tensor:
     """Attention of ``q [B, Hq, Sq, D]`` over ``k, v [B, Hkv, Sk, D]``.
+
+    The scores are scaled by ``scale`` in float32 (default ``D**-0.5``); a
+    caller that scales q in its own dtype first, as the reference model
+    does, passes ``scale=1.0``.
 
     float32 or bfloat16 (one dtype for all three), ``Hq % Hkv == 0``, any
     Sq, Sk >= 1.  q, k and v may be strided views (a cache prefix); one the
@@ -100,7 +108,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> 
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {dev}")
     if d not in HEAD_DIMS:
@@ -121,7 +129,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> 
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attn_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
-            b, hq, hkv, sq, sk, int(causal), _DTYPES[q.dtype], d, 1.0 / d**0.5,
+            b, hq, hkv, sq, sk, int(causal), _DTYPES[q.dtype], d,
+            1.0 / d**0.5 if scale is None else scale,
             None if part is None else part.data_ptr(), chunk, nchunks, stream,
         )
     if err != 0:

@@ -1,1 +1,2 @@
-"""Model definitions of the port: the dense GQA transformer (llama3.2-1b)."""
+"""Model definitions of the port: the transformer family (GQA, MLA, MoE),
+MIND (``recsys``) and the GNNs (``gnn``)."""

@@ -113,16 +113,16 @@ def chunked_attention(
     block_q: int = 512,
     block_k: int = 1024,
     kv_valid_len: Tensor | int | None = None,  # mask KV positions >= this (decode cache)
+    scale: float | None = None,  # default D**-0.5; 1.0 for a q scaled already
 ) -> Tensor:
     """Flash-style online-softmax attention over blocks of queries and keys,
     the reference's block loop step for step (its ``lax.map`` and
     ``lax.scan`` become Python loops).  GQA via head grouping.
 
     ``q`` is scaled by ``D**-0.5`` in its own dtype before the float32
-    cast, where K5 scales in float32: for D = 64 and 16 the scale is a
-    power of two, so the two agree bit for bit; at D = 128 in bfloat16 they
-    differ by up to one bf16 step of a row's largest output
-    (``tests/test_torch_flash_attn.py``, the q-scale test).
+    cast, as the reference does.  The transformer's card path does the
+    same before it calls K5 with ``scale=1.0``, so the two paths round q
+    alike (``tests/test_torch_flash_attn.py``, the q-scale test).
     """
     b, hq, sq, d = q.shape
     hkv, sk, dv = v.shape[1], v.shape[2], v.shape[3]
@@ -135,7 +135,7 @@ def chunked_attention(
     if kpad:
         k = torch.nn.functional.pad(k, (0, 0, 0, kpad))
         v = torch.nn.functional.pad(v, (0, 0, 0, kpad))
-    scale = d**-0.5
+    scale = d**-0.5 if scale is None else scale
     valid = kv_valid_len if kv_valid_len is not None else sk
     valid = torch.as_tensor(valid, device=q.device)
     outs = []

@@ -14,7 +14,8 @@ single-device path does: a causal prefill with no cache (Sq == Sk, queries
 from position 0) and a one-token decode against the cache prefix
 ``[:pos[0] + 1]``, one valid length for the whole batch.  GQA on a CUDA
 device runs the hand-written kernel K5 (``kernels/flash_attn.py``), the
-decode on a strided view of the cache; on the CPU it runs
+decode on a strided view of the cache, on q scaled by ``D**-0.5`` in q's
+dtype first, as the reference's attention scales it; on the CPU it runs
 :func:`common.chunked_attention` with the reference's arguments.  MLA
 (keys of nope + rope dims, values of another) runs ``chunked_attention`` on
 either device, as the reference does; its decode expands only the valid
@@ -189,9 +190,13 @@ def _attention(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor, ca
     v = v.reshape(b, sq, hkv, dh).transpose(1, 2)
     q = cm.apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = cm.apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    if dev == "cuda":
+        # q scaled in its own dtype, as the reference's chunked_attention
+        # does (repro/models/common.py), and K5 told not to scale again
+        qs = q * dh**-0.5
     if cache is None:
         if dev == "cuda":
-            out = fa.flash_attention(q, k, v, causal=True)
+            out = fa.flash_attention(qs, k, v, causal=True, scale=1.0)
         else:
             out = cm.chunked_attention(q, k, v, causal=True,
                                        block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
@@ -204,7 +209,8 @@ def _attention(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor, ca
         if dev == "cuda":
             # K5 over the valid prefix (a strided view): the reference's
             # kv_valid_len = pos[0] + 1, one length for every row
-            out = fa.flash_attention(q, ck[:, :, :kv_len], cv[:, :, :kv_len], causal=False)
+            out = fa.flash_attention(qs, ck[:, :, :kv_len], cv[:, :, :kv_len], causal=False,
+                                     scale=1.0)
         else:
             out = cm.chunked_attention(q, ck, cv, causal=False, q_offset=pos,
                                        kv_valid_len=pos[0] + 1,

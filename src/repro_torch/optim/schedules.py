@@ -1,0 +1,15 @@
+"""LR schedules: the port of ``repro.optim.schedules``."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def cosine_with_warmup(step, *, peak_lr: float, warmup: int, total: int, floor: float = 0.1):
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = peak_lr * step / max(warmup, 1)
+    frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    cos = peak_lr * (floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * frac)))
+    return torch.where(step < warmup, warm, cos)

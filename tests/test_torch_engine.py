@@ -400,4 +400,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.planner.landmark_rewrite", "repro_torch.models.moe",
             "repro_torch.models.recsys.mind", "repro_torch.models.recsys.embeddingbag",
             "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.minicpm3_4b",
-            "repro_torch.configs.mind"} <= imported
+            "repro_torch.configs.mind", "repro_torch.models.gnn.equiformer_v2",
+            "repro_torch.models.gnn.dimenet", "repro_torch.models.gnn.wigner",
+            "repro_torch.configs.gnn_harness", "repro_torch.optim.adamw", "repro_torch.optim.compression",
+            "repro_torch.data.sampler", "repro_torch.launch.train"} <= imported

@@ -95,23 +95,24 @@ def test_flash_attention_reads_a_strided_cache_prefix(dtype):
     np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[tdt], rtol=TOL[tdt])
 
 
-# the q-scale difference at D = 128, measured on the CPU: the largest
-# absolute difference and the largest of a row's largest difference over
-# its largest |value|, for the prefill and the decode form; both are whole
-# bf16 steps (2^-6 at outputs of 2 to 4, one step of the row's largest)
-Q_SCALE_DIFF_D128 = {"prefill": (2.0**-6, 2.0**-7), "decode": (2.0**-9, 2.0**-7)}
+# the pre-repair gap at D = 128 (K5 scaling q in float32 while the model
+# scaled it in bf16), measured on the CPU: the largest absolute difference
+# and the largest of a row's largest difference over its largest |value|
+Q_SCALE_GAP_D128 = {"prefill": (2.0**-6, 2.0**-7), "decode": (2.0**-9, 2.0**-7)}
 
 
 @pytest.mark.parametrize("form", ["prefill", "decode"])
 @pytest.mark.parametrize("d", [16, 64, 128])
-def test_q_scale_difference_between_the_model_and_k5_is_pinned(d, form):
+def test_model_kernel_path_scales_q_as_chunked_attention(d, form):
     """At qwen2-moe's attention shape (16 query and KV heads, bf16) the
-    model's ``chunked_attention``, which scales q by ``D**-0.5`` in q's
-    dtype as the reference does, against ``flash_attention_plain``, which
-    scales in float32 as K5 does.  For D = 16 and 64 the scale is a power
-    of two and the two are bit-equal.  At D = 128 the rounding of q·scale
-    to bf16 moves the outputs by at most :data:`Q_SCALE_DIFF_D128` (one bf16
-    step of a row's largest value); the test fails above it."""
+    transformer's card-path form of K5 -- q scaled by ``D**-0.5`` in q's
+    dtype, then ``flash_attention_plain`` with ``scale=1.0`` -- against the
+    model's ``chunked_attention``, which scales q the same way, as the
+    reference does.  Over one key block the two sum the same float32
+    products in the same order, so they agree bit for bit at every head
+    dim.  At D = 128, where 128**-0.5 is no power of two, K5's default
+    float32 scaling still differs by the gap the repair removed (at most
+    :data:`Q_SCALE_GAP_D128`), so the check can tell the two apart."""
     from repro_torch.models import common as cm
 
     sq, causal = (256, True) if form == "prefill" else (1, False)
@@ -119,15 +120,17 @@ def test_q_scale_difference_between_the_model_and_k5_is_pinned(d, form):
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
                for shape in ((2, 16, sq, d), (2, 16, 256, d), (2, 16, 256, d)))
     model = cm.chunked_attention(q, k, v, causal=causal)
-    kernel_plain = K5.flash_attention_plain(q, k, v, causal=causal)
+    kernel_path = K5.flash_attention_plain(q * d**-0.5, k, v, causal=causal, scale=1.0)
+    assert torch.equal(model, kernel_path)
+    assert torch.equal(K5.flash_attention(q * d**-0.5, k, v, causal=causal, scale=1.0), kernel_path)
+    f32_scaled = K5.flash_attention_plain(q, k, v, causal=causal)
     if d != 128:
-        assert torch.equal(model, kernel_plain)
+        assert torch.equal(model, f32_scaled)
         return
-    diff = (model.float() - kernel_plain.float()).abs()
-    row_rel = float((diff / kernel_plain.float().abs().amax(dim=-1, keepdim=True)).max())
-    max_abs, max_row_rel = Q_SCALE_DIFF_D128[form]
-    assert float(diff.max()) > 0  # the difference is there ...
-    assert float(diff.max()) <= max_abs and row_rel <= max_row_rel  # ... and no larger
+    diff = (model.float() - f32_scaled.float()).abs()
+    row_rel = float((diff / f32_scaled.float().abs().amax(dim=-1, keepdim=True)).max())
+    max_abs, max_row_rel = Q_SCALE_GAP_D128[form]
+    assert 0 < float(diff.max()) <= max_abs and row_rel <= max_row_rel
 
 
 # (b, hq, hkv, sq, sk): GQA and MQA, sized for the reference's blocks

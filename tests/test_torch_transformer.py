@@ -411,10 +411,8 @@ def test_cuda_forward_and_decode_match_the_plain_path(dtype, cfg_name):
     config), 64 and 128, and qwen2-moe's smoke config at 128: logits at
     2e-5 relative in float32 (TF32 off) and at 5e-2 in bfloat16 (the MoE
     config row by row, :func:`_assert_logits_close`).  At D = 128 the scale 128**-0.5 is no power of two:
-    chunked_attention rounds q * scale to bfloat16 where K5 scales the
-    float32 scores, so in bfloat16 the two paths also differ by that
-    rounding of q, which the bfloat16 limit holds (in float32 both scale in
-    float32)."""
+    the card path scales q in its own dtype before K5 (``scale=1.0``), as
+    chunked_attention does, so both round q * scale alike."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _cuda_cfg(cfg_name, dtype)
