@@ -8,6 +8,15 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 1. ``env``     torch/CUDA versions, the card, its power limit.
 2. ``build``   every CUDA source under ``src/repro_torch/kernels/csrc/``
                compiled by ``nvcc`` (one process each, all started together).
+               While the others compile, once K5's is built,
+               ``lm_train_card_vs_cpu`` (its line prints first): the three
+               LM configs at full widths cut to 2 layers, float32, TF32
+               off, 2 x 128 tokens: loss (1e-6) and gradient leaves
+               (1e-4), card against CPU, and one AdamW step on the CPU's
+               gradients (1e-6; qwen2-moe's expert stacks cut to their
+               first 8 of 64 experts) (the CPU half on all cores but one,
+               which nvcc keeps).  ``build``'s seconds run from the first
+               nvcc's start to the last one's end; the check has its own.
                ``flash_sass``: tensor-core instructions (HMMA / HGMMA) per
                kernel of the built ``flash_attn`` library (``cuobjdump
                -sass``); the bf16 prefill kernels must have them.
@@ -42,7 +51,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                ``max_iters=48``, ``batch_capacity=32``, S=16) on a uniform
                directed graph at the size of SNAP cit-Patents (3,774,768
                vertices, 16,518,948 edges, weights 1..10, split 90/10), fed
-               128 updates (``MAIN_UPDATES``) of a stream with 20% deletes
+               64 updates (``MAIN_UPDATES``) of a stream with 20% deletes
                in chunks of 32 through
                ``apply_updates_batched`` (chunk 0 is warm-up); launch counts
                are zeroed just before and read just after.  The answers must
@@ -86,7 +95,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                optimize="always")`` with the ``LandmarkRule`` default L = 4;
                8 SPSP plans from the main path's sources to ``(s + V // 2)
                % V`` (``cqp_serve --query spsp``), ``max_iters=48``; the
-               stream's first 128 updates in 4 chunks of 32, every target
+               stream's first 64 updates in 2 chunks of 32, every target
                read after every chunk.  Every target equals SCRATCH (8
                un-rewritten SSSP runs) bit for bit.  Reports the index
                build (``transpose_graph``, the twin over Gᵀ, the
@@ -151,7 +160,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                answers equal a ``--engine scratch`` run's; on ``fused``
                ``--mesh data --shards 4 --emulate-devices 4`` plain and
                drilled, and its checkpoint restored at ``--mesh none``, with
-               the unsharded plain run's digests (five chains side by side).
+               the unsharded plain run's digests (five chains side by side,
+               started with ``train_drill``'s processes before
+               ``parity_fused`` and collected after ``parity_planner``: the
+               parity phases time nothing; both lines print after
+               ``parity_planner``).
                ``parity_planner``: ``CQPSession(optimize="always")`` at V =
                2**16 on ``fused``, the card against the port's CPU run on
                the same inputs (pruned fields, ``iters``, ``work`` and the
@@ -161,21 +174,21 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                restore → replay with the index live.
 7. ``main_lm``  llama3.2-1b serving at its published widths in bf16
                (weights from a seeded generator): ``make_prefill`` on 8 x
-               4096 tokens, 64 greedy ``make_decode`` steps, then
+               4096 tokens, 32 greedy ``make_decode`` steps, then
                ``lm_serve`` at the CLI defaults on ``arch.full()``; K5's
                launches must equal layers x calls; prefill tokens/s, decode
                step p50/p99, peak memory, one profiled prefill and decode
                step, and the plain path (attention through
                ``chunked_attention``) teacher-forced on the same tokens,
                picking the kernel path's token at least 0.9 of the time.
-               ``main_lm_long``: prefill 1 x 32768, then 16 decode steps at
+               ``main_lm_long``: prefill 1 x 32768, then 8 decode steps at
                batch 32 against a 32768-position cache from the generator,
                held to the same floor.
                ``main_lm_f32``: full width in float32, TF32 off, 2 x 1024
                and 8 steps; logits within 1e-4 of the plain path's.
                ``main_moe``: qwen2-moe-a2.7b at its published widths in
                bf16 (the init's peak memory at most one float32 slice above
-               the weights): prefill 8 x 4096 and 32 decode steps (K5 one
+               the weights): prefill 8 x 4096 and 16 decode steps (K5 one
                launch a layer a call), the dropped share of the routed
                choices at prefill and decode, layer 0's router logits routed
                on the card and on the host (top-k, slots and per-expert
@@ -189,13 +202,35 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                decode steps at batch 4 against a 32768-position cache from
                the generator, held to the same floor.  ``main_mla``:
                minicpm3-4b likewise (MLA: ``chunked_attention``, no K5):
-               prefill 8 x 4096 and 8 steps, its decode logits against one
+               prefill 4 x 4096 and 8 steps, its decode logits against one
                forward over the same tokens (within 5e-2 of the largest
                |logit|), a batch-4 32k decode, ``lm_serve``, and 2 layers at
                full width in float32 on the card against the CPU (1e-4).
                ``main_mind``: MIND's ``serve_p99`` on the card against the
                CPU (rtol 1e-5), then ``serve_p99``, ``serve_bulk`` and
                ``retrieval_cand`` timed, and ``mind_serve``.
+               ``main_lm_train`` (after ``main_lm_long``, on its weights):
+               llama3.2-1b's ``train_4k`` at full width in bf16 with remat,
+               cut to 16 x 4096 a step in 8 microbatches of 2, through
+               ``launch/train.lm_setup`` (``make_train_step``, AdamW at lr
+               3e-4): one warm-up and 4 timed steps, K5's launches exactly
+               16 layers x 8 microbatches x 2 (the forward and the remat
+               recompute, through ``FlashAttention``) a step; step
+               p50/p99, tokens/s, the bf16 peak share of 6 x params x
+               tokens, peak memory, one profiled step split by range (K5's
+               forward, its plain backward, MLP, loss, AdamW); every loss
+               finite and, over 3 steps on one fixed 2 x 4096 batch, the
+               lowest later loss below the first.  ``main_mind_train``:
+               MIND's ``train_batch`` uncut (B = 65,536) through
+               ``launch/train.mind_setup`` under deterministic algorithms,
+               one warm-up and 4 timed steps (step ms, users/s, peak
+               memory), then the card against the CPU at B = 1,024 (loss
+               1e-6, leaves 1e-5).  ``k5_grad``: ``FlashAttention``'s dq,
+               dk, dv on the card against autograd through
+               ``flash_attention_plain`` at llama's heads (2 x 32/8 x 4096,
+               D 64) and qwen2-moe's (16/16, D 128), float32 (1e-4 of each
+               gradient's largest value) and bf16 (2^-6); the plain
+               backward timed beside SDPA's backward (a yardstick only).
 8. ``kernel_real``  each kernel against its plain version at the main
                path's shapes, timed with CUDA events, beside its bound:
                ``ell_spmv`` on the ``main`` engine's ELL arrays (for
@@ -252,12 +287,14 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                widths on a small seeded batch, the card's loss (rtol 1e-5)
                and gradient leaves (1e-4 of each leaf's largest value)
                against the port's CPU run on the same parameters, and one
-               AdamW step on the CPU's gradients on both.  ``train_drill``:
+               AdamW step on the CPU's gradients on both.  ``train_drill``
+               (run beside the parity phases, above):
                ``python -m repro_torch.launch.train`` subprocesses on the
-               card, GatedGCN 20 steps with a fault before step 15 and
-               without (deterministic algorithms): one restart, the injected
-               fault alone, losses and final parameters bit-equal; and
-               EquiformerV2 for 5 steps.
+               card, GatedGCN, llama3.2-1b and MIND each 20 steps with a
+               fault before step 15 and without (deterministic algorithms):
+               one restart, the injected fault alone, losses and final
+               parameters bit-equal; and EquiformerV2 for 5 steps.
+
 
 Every phase line carries ``phase_s``, the wall seconds since the line
 before it, so the lines split the run's wall: the real-size kernel timings
@@ -295,14 +332,24 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 SEED = 0
 # updates a run takes from the stream (chunks of 32, the first a warm-up):
-# main, main_fused and main_sharded 128 (256 until the GNN phase took the
-# time), main_vdc 96 (256), main_serve 192 (256: 6 rounds, the fault still
-# before chunk 5); the stream holds 256 + one chunk (main_session's two
-# legs of 128)
+# main, main_fused and main_sharded 64 (256 until the GNN phase took the
+# time, 128 until the training phases did), main_vdc 64 (256, then 96),
+# main_serve 192 (256: 6 rounds, the fault still before chunk 5); the
+# stream holds 256 + one chunk (main_session's two legs of 128)
 STREAM_UPDATES = 256
-MAIN_UPDATES = 128
-VDC_UPDATES = 96
+MAIN_UPDATES = 64
+VDC_UPDATES = 64
 SERVE_UPDATES = 192
+# the V = 2**16 streams of parity_fused, parity_sharded and parity_vdc: one
+# chunk of 32 (96 until the training phases took the time; parity_vdc's
+# join-flip run splits it in two; parity_session and parity_planner keep
+# their three chunks)
+PARITY_UPDATES = 32
+LANDMARK_UPDATES = 64  # main_landmark: two chunks (128 until the training phases)
+# the CLI drills' subprocesses (small graphs, smoke configs) run beside the
+# parity phases: one CPU thread each, or a dozen of them at the card's eight
+# host cores' worth of threads apiece oversubscribe the host
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 
 _last_line = time.perf_counter()  # when the previous phase line was printed
@@ -1665,7 +1712,7 @@ def parity_sharded(device, num_vertices: int = 1 << 16) -> dict:
         K.reset_launches()
     rng = np.random.default_rng(SEED + 7)
     num_edges = round(num_vertices * PATENTS_E / PATENTS_V)
-    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), 96, 0.2, rng)
+    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), PARITY_UPDATES, 0.2, rng)
     sources = pick_sources(DynamicGraph(num_vertices, initial), 8, rng)
     meshes = {n: make_data_mesh(n, device=device, emulate=True) for n in (2, 4)}
 
@@ -2580,7 +2627,7 @@ def parity_planner(device, num_vertices: int = 1 << 16) -> dict:
             "governed": {"shed": shed, "calm_passes": calm, "rematerialised": remat, "exact": True}}
 
 
-def cqp_serve_drill() -> dict:
+def cqp_serve_drill_start() -> dict:
     """``python -m repro_torch.launch.cqp_serve --json`` at its defaults on
     the card, per backend (``fused``, ``ell``): a plain run, a drill
     (checkpoint every 2 chunks, a fault before chunk 3) and a ``--restore``
@@ -2592,12 +2639,14 @@ def cqp_serve_drill() -> dict:
     of the three are equal.  On ``fused``, the vertex-sharded sweep: ``--mesh
     data --shards 4 --emulate-devices 4`` plain and drilled, then a
     ``--restore`` of its 4-shard checkpoint at ``--mesh none``: every digest
-    equal to the unsharded plain run's.  Five chains run side by side, each
-    process to its end."""
+    equal to the unsharded plain run's.  Five chains run side by side on
+    threads of their own, each process to its end, while the main process
+    goes on (the parity phases); :func:`cqp_serve_drill_finish` collects and
+    checks them."""
     import os
     import shutil
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
     base = [sys.executable, "-m", "repro_torch.launch.cqp_serve", "--json"]
     drill = ["--checkpoint-every", "2", "--inject-fault-at", "3"]
     spsp = ["--query", "spsp", "--optimize", "always"]
@@ -2668,17 +2717,26 @@ def cqp_serve_drill() -> dict:
                 raise AssertionError(f"cqp_serve {backend} {name}: targets differ from the scratch run")
         return runs
 
-    t0 = time.perf_counter()
     jobs = [(b, q) for b in ("fused", "ell") for q in ("sssp", "spsp")] + [("fused", "sharded")]
-    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
-        done = dict(zip(jobs, ex.map(chain, jobs)))
+    ex = ThreadPoolExecutor(max_workers=len(jobs))
+    return {"ex": ex, "futures": {job: ex.submit(chain, job) for job in jobs}, "t0": time.perf_counter()}
+
+
+def cqp_serve_drill_finish(handle: dict) -> dict:
+    """Wait for :func:`cqp_serve_drill_start`'s chains (each raises on a
+    failed check of its own) and hold the sharded chain's digests to the
+    unsharded plain run's."""
+    try:
+        done = {job: f.result() for job, f in handle["futures"].items()}
+    finally:
+        handle["ex"].shutdown(wait=True)
     plain = done[("fused", "sssp")]["plain"]
     for name, run in done[("fused", "sharded")].items():
         for key in ("nbytes_per_query", "answers_sha256"):
             if run[key] != plain[key]:
                 raise AssertionError(f"cqp_serve fused {name}: {key} differs from the unsharded plain run")
     return {"args": "--v 512 --e 2048 --queries 8 --updates 256 --batch 32 (the CLI defaults)",
-            "seconds": time.perf_counter() - t0, "equal": True,
+            "seconds_since_start": time.perf_counter() - handle["t0"], "equal": True,
             **{b: {**done[(b, "sssp")], **done[(b, "spsp")]} for b in ("fused", "ell")},
             "fused_sharded": done[("fused", "sharded")]}
 
@@ -2798,7 +2856,7 @@ def parity_vdc(device, num_vertices: int = 1 << 16) -> dict:
 
     rng = np.random.default_rng(SEED + 4)
     num_edges = round(num_vertices * PATENTS_E / PATENTS_V)
-    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), 96, 0.2, rng)
+    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), PARITY_UPDATES, 0.2, rng)
     both = np.concatenate([initial, initial[:, [1, 0, 2]]])
     _, first = np.unique(both[:, 0] * num_vertices + both[:, 1], return_index=True)
     sym_initial = both[np.sort(first)]
@@ -2849,10 +2907,11 @@ def parity_vdc(device, num_vertices: int = 1 << 16) -> dict:
                                 mode="vdc", backend=be)
         engines[be] = E.DiffIFE(cfg, DynamicGraph(num_vertices, initial), init, batch_capacity=32,
                                 join_rows=join_rows, device=device)
-    iters, rows = run(engines, stream[:64])
+    half = len(stream) // 2  # updates on both sides of the flip
+    iters, rows = run(engines, stream[:half])
     freed = {be: e.set_join_store(0, False) for be, e in engines.items()}
     back = {be: e.set_join_store(0, True) for be, e in engines.items()}
-    more_iters, more_rows = run(engines, stream[64:])
+    more_iters, more_rows = run(engines, stream[half:])
     if freed["coo"] != freed["fused"] or freed["coo"] <= 0 or set(back.values()) != {0}:
         raise AssertionError(f"set_join_store: freed {freed}, back {back}")
     same_leaves(vdc_leaves(engines["fused"].state), vdc_leaves(engines["coo"].state), "mixed join_rows")
@@ -2876,7 +2935,7 @@ def parity_fused(device, num_vertices: int = 1 << 16) -> dict:
 
     rng = np.random.default_rng(SEED + 3)
     num_edges = round(num_vertices * PATENTS_E / PATENTS_V)
-    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), 96, 0.2, rng)
+    initial, stream = split_and_stream(uniform_edges(num_vertices, num_edges, rng), PARITY_UPDATES, 0.2, rng)
     both = np.concatenate([initial, initial[:, [1, 0, 2]]])
     _, first = np.unique(both[:, 0] * num_vertices + both[:, 1], return_index=True)
     sym_initial = both[np.sort(first)]
@@ -2961,8 +3020,8 @@ F32_LOGIT_REL_TOL = 1e-4
 # about 1 / vocab)
 BF16_TOP1_FLOOR = 0.9
 # the LM phases' sizes (the cells' own and their cuts: PERF.md §4)
-LM_MAIN = dict(batch=8, prompt=4096, steps=64)
-LM_LONG = dict(seq=32768, batch=32, steps=16)
+LM_MAIN = dict(batch=8, prompt=4096, steps=32)  # 64 until the training phases took the time
+LM_LONG = dict(seq=32768, batch=32, steps=8)  # 16 until the training phases took the time
 LM_F32 = dict(batch=2, prompt=1024, steps=8)
 
 
@@ -3546,7 +3605,7 @@ def lm_prefill_decode_phase(cfg, params, *, batch: int, prompt: int, steps: int,
 
 def main_lm(device, capture: FlashCapture) -> tuple[dict, dict]:
     """llama3.2-1b at its published widths in bf16, weights from a seeded
-    generator: ``make_prefill`` on 8 x 4096 tokens and 64 decode steps,
+    generator: ``make_prefill`` on 8 x 4096 tokens and 32 decode steps,
     then ``lm_serve`` at the CLI defaults (batch 4, prompt 16, gen 8) on
     ``arch.full()``.  Returns the phase line and the weights."""
     import torch
@@ -3590,8 +3649,9 @@ def main_lm(device, capture: FlashCapture) -> tuple[dict, dict]:
 
 def main_lm_long(device, params, capture: FlashCapture) -> dict:
     """The cells' own sequence length: ``make_prefill`` on 1 x 32768 tokens,
-    then 16 ``make_decode`` steps at batch 32 against a 32768-position cache
-    filled from the generator (positions 32752..32767)."""
+    then :data:`LM_LONG`'s 8 ``make_decode`` steps at batch 32 against a
+    32768-position cache filled from the generator (positions
+    32760..32767)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -3679,7 +3739,7 @@ def main_lm_f32(device, capture: FlashCapture) -> dict:
 
 # ------------------------------------------------------- MoE, MLA and MIND
 # the cells' sizes and their cuts (PERF.md §4)
-MOE_MAIN = dict(batch=8, prompt=4096, steps=32)
+MOE_MAIN = dict(batch=8, prompt=4096, steps=16)  # 32 until the training phases took the time
 # 24 steps, where there were 8: at 8, 32 teacher-forced tokens hold the 0.9
 # floor to chance (25/32 once the model scaled q in bf16 as the reference
 # does).  The steps decode positions seq - steps .. seq - 1, so the 8-step
@@ -3689,7 +3749,9 @@ MOE_LONG = dict(seq=32768, batch=4, steps=24)
 # minicpm3's decode steps are cut to 8 and 2 (the time limit: on an H100
 # a step of the plain MLA attention takes 0.38-0.46 s at 4k positions and
 # 1.4-1.6 s at 32k)
-MLA_MAIN = dict(batch=8, prompt=4096, steps=8)  # 16 before the GNN phase took the time
+# batch 8 and 16 steps before the GNN phase took the time, 8 steps until the
+# training phases did
+MLA_MAIN = dict(batch=4, prompt=4096, steps=8)
 MLA_LONG = dict(seq=32768, batch=4, steps=2)  # 4 before it
 MLA_F32 = dict(layers=2, batch=2, prompt=128, steps=4)
 MOE_F32 = dict(layers=4, batch=2, prompt=1024, steps=8)
@@ -3894,7 +3956,7 @@ def long_decode(cfg, params, *, seq: int, batch: int, steps: int, seed: int, dev
 
 def main_moe(device, capture: FlashCapture) -> dict:
     """qwen2-moe-a2.7b at its published widths in bf16, weights from a
-    seeded generator: ``make_prefill`` on 8 x 4096 tokens and 32 decode
+    seeded generator: ``make_prefill`` on 8 x 4096 tokens and 16 decode
     steps (K5 one launch a layer a call), the dropped share of the routed
     choices in each, the dispatch on the card against the CPU's on one
     layer's router logits, the plain path teacher-forced beside it with
@@ -4086,7 +4148,7 @@ def mla_f32_check(device) -> dict:
 
 def main_mla(device) -> dict:
     """minicpm3-4b at its published widths in bf16, weights from a seeded
-    generator: ``make_prefill`` on 8 x 4096 and 16 decode steps (MLA runs
+    generator: ``make_prefill`` on 4 x 4096 and 8 decode steps (MLA runs
     ``chunked_attention``: K5 launches no time), check 1
     (:func:`mla_decode_vs_forward`), a batch-4 decode at 32768 positions
     against a latent cache from the generator, ``lm_serve`` at the CLI
@@ -4100,8 +4162,8 @@ def main_mla(device) -> dict:
     params, init = init_lm(cfg, device)
     lm_prefill(cfg, params, torch.zeros((1, 64), dtype=torch.long, device=device))  # warm-up
     out = {"arch": arch.name, "dtype": dtype_name(cfg.dtype), "num_params": cfg.num_params(), **init,
-           "reduced": {"prefill_32k.global_batch": "32 -> 8", "prefill_32k.seq_len": "32768 -> 4096",
-                       "decode_32k.global_batch": "128 -> 4"}}
+           "reduced": {"prefill_32k.global_batch": f"32 -> {MLA_MAIN['batch']}",
+                       "prefill_32k.seq_len": "32768 -> 4096", "decode_32k.global_batch": "128 -> 4"}}
     phase, run = lm_prefill_decode_phase(cfg, params, **MLA_MAIN, tag="mla", device=device, compare=False)
     out.update(phase)
     for form in ("prefill", "decode_step"):
@@ -4209,6 +4271,366 @@ def main_mind(device) -> dict:
         raise AssertionError("mind_serve returned bad scores")
     out["mind_serve"] = {"batch": 4, "candidates": 64, "seconds": served["seconds"]}
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- LM and MIND training
+# llama3.2-1b's train_4k cell (global batch 256 x 4096) cut to 16 sequences
+# a step, in 8 microbatches of 2; 1 warm-up and 4 timed steps
+LM_TRAIN = dict(batch=16, seq=4096, grad_accum=8, steps=4)
+# k5_grad: (B, Hq, Hkv, S, D) at llama3.2-1b's heads and at qwen2-moe's (D = 128)
+K5_GRAD_SHAPES = ((2, 32, 8, 4096, 64), (2, 16, 16, 4096, 128))
+# the Function's gradients against autograd through the plain version, of
+# each gradient's largest |value|: float32 (TF32 off) as the CPU tests'
+# leaves, bf16 at K5's row limit (the bf16 output O enters dS)
+K5_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0**-6}
+LM_CHECK = dict(layers=2, batch=2, seq=128)  # lm_train_card_vs_cpu: full widths, 2 layers
+LM_CHECK_TOL = {"loss_rtol": 1e-6, "leaf_rel": 1e-4, "adamw_leaf_rel": 1e-6}
+# the AdamW step card vs CPU takes every leaf, but of qwen2-moe's expert
+# stacks [L, E, ...] only the first LM_CHECK_EXPERTS experts: its 1.83 B
+# float32 parameters through the CPU's AdamW took ~40 s of the script's
+# limit, its expert stacks 1.1 B of them (the cut tree keeps every kind of
+# leaf; the clip is over the tree both devices are given)
+LM_CHECK_EXPERTS = 8
+EXPERT_STACKS = ("we_g", "we_i", "we_o")
+MIND_TRAIN_STEPS = 4  # timed, after one warm-up
+MIND_CHECK_BATCH = 1024
+MIND_CHECK_TOL = {"loss_rtol": 1e-6, "leaf_rel": 1e-5}
+TRAIN_RANGES = ("attention", "attention.backward", "mlp", "loss", "adamw")
+
+
+def ranged(name: str, fn):
+    """``fn`` under a ``torch.profiler.record_function`` range ``name``."""
+    import torch
+
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def k5_grad(device) -> dict:
+    """K5's ``FlashAttention`` (the kernel forward, the plain backward) on
+    the card against autograd through ``flash_attention_plain`` on the same
+    causal operands, at :data:`K5_GRAD_SHAPES` in float32 (TF32 off) and
+    bf16, each gradient within :data:`K5_GRAD_TOL` of its largest |value|;
+    one K5 launch a call.  Then ``flash_attention_backward_plain`` timed
+    beside ``scaled_dot_product_attention``'s backward on the same operands
+    (a yardstick only) and the backward's bound: 4 products of 2·d
+    operations per visible (row, key) pair (dV, dP, dQ, dK), q, k, v, O and
+    dO read once, dq, dk, dv written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as K5
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"tolerance": K5_GRAD_TOL, "cases": []}
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    for b, hq, hkv, s, d in K5_GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = dtype_name(dtype)
+            q = torch.randn((b, hq, s, d), generator=gen, device=device).to(dtype).requires_grad_(True)
+            k = torch.randn((b, hkv, s, d), generator=gen, device=device).to(dtype).requires_grad_(True)
+            v = torch.randn((b, hkv, s, d), generator=gen, device=device).to(dtype).requires_grad_(True)
+            dout = torch.randn((b, hq, s, d), generator=gen, device=device).to(dtype)
+            K5.reset_launches()
+            o = K5.flash_attention(q, k, v, causal=True)
+            got = torch.autograd.grad(o, (q, k, v), dout)
+            launches = K5.LAUNCHES
+            if launches != 1 or type(o.grad_fn).__name__ != "FlashAttentionBackward":
+                raise AssertionError(f"k5_grad: {launches} launches, grad_fn {o.grad_fn}")
+            want = torch.autograd.grad(K5.flash_attention_plain(q, k, v, causal=True), (q, k, v), dout)
+            rel = {}
+            for g, a, w in zip(("dq", "dk", "dv"), got, want):
+                w = w.float()
+                rel[g] = float((a.float() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            del want, got
+            row = {"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "dtype": name, "launches": launches,
+                   "grad_rel_diff": rel}
+            if not max(rel.values()) <= K5_GRAD_TOL[name]:
+                raise AssertionError(f"k5_grad: {row}")
+            od = o.detach()
+            plain_bw = lambda: K5.flash_attention_backward_plain(q, k, v, od, dout, causal=True)  # noqa: E731
+            qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+            lib_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+            lib_bw = lambda: torch.autograd.grad(lib_o, (qs, ks, vs), dout, retain_graph=True)  # noqa: E731
+            m = s * (s + 1) // 2
+            flops = 4 * 2 * b * hq * m * d
+            nbytes = q.element_size() * d * (4 * b * hq * s + 4 * b * hkv * s)  # q, O, dO, dq; k, v, dk, dv
+            t_ops = flops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            row.update(plain_backward_ms=time_ms(plain_bw, reps=2, warmup=1),
+                       library_backward_ms=time_ms(lib_bw, reps=5, warmup=2),
+                       library="torch.nn.functional.scaled_dot_product_attention backward",
+                       bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       flops=flops, bytes=nbytes)
+            out["cases"].append(row)
+            del q, k, v, dout, o, od, qs, ks, vs, lib_o
+            torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_step_profile(step) -> dict:
+    """One train step under ``torch.profiler``: wall, device-busy, idle share,
+    top kernels, K5's kernel time, and device ms by range — the layers'
+    ``attention`` and ``mlp`` (forward and remat recompute), the plain
+    backward of K5 (``attention.backward``), the loss's forward (``loss``),
+    AdamW (``adamw``); ``unattributed`` holds the other gradients' kernels,
+    which autograd launches outside the forward's ranges."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import lm_harness as LH
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import common as cm
+
+    torch.cuda.synchronize()
+    with patched(K5, "flash_attention_backward_plain", ranged("attention.backward", K5.flash_attention_backward_plain)), \
+            patched(cm, "cross_entropy_loss", ranged("loss", cm.cross_entropy_loss)), \
+            patched(LH, "adamw_update", ranged("adamw", LH.adamw_update)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    traced = device_busy(prof, OUT_DIR / "chip_smoke_lm_train_step_trace.json", k5=True, ranges=TRAIN_RANGES)
+    traced["wall_ms"] = wall * 1e3
+    traced["device_idle_share"] = 1.0 - traced["device_busy_ms"] / traced["wall_ms"]
+    traced["loss"] = loss
+    return traced
+
+
+def main_lm_train(device, params) -> dict:
+    """llama3.2-1b's ``train_4k`` at ``full()`` widths in bf16 with remat,
+    through ``launch/train.lm_setup`` (``make_train_step`` with
+    :data:`LM_TRAIN`'s microbatches, AdamW at lr 3e-4) from ``params``:
+    one warm-up step on ``lm_batch(0)``, then the timed steps on
+    ``lm_batch(1..)``, K5's count zeroed just before them and read just
+    after — 16 layers x 8 microbatches x 2 (the forward and the remat
+    recompute) a step; step p50/p99, tokens/s, the model-FLOPs share of the
+    bf16 peak (6 x params x tokens), peak memory; one profiled step; then 3
+    steps on one fixed 2 x 4096 batch whose lowest later loss must be below
+    the first.  Every loss and gradient norm finite."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import lm_harness as LH
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.launch import train as T
+
+    arch = get_arch("llama3.2-1b")
+    cfg = arch.full()
+    b, s, acc, steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["grad_accum"], LM_TRAIN["steps"]
+    if not cfg.remat:
+        raise AssertionError("main_lm_train: llama3.2-1b's full config has remat off")
+    (p, opt), step_fn, data = T.lm_setup(arch, cfg, batch=b, seq=s, grad_accum=acc, params=params,
+                                         device=device)
+    del params
+    losses, gnorms, step_s = [], [], []
+
+    def run(i, fn=step_fn, batch=None):
+        nonlocal p, opt
+        t0 = time.perf_counter()
+        p, opt, m = fn(p, opt, *(data(i) if batch is None else batch))
+        loss, gn = float(m["loss"]), float(m["gnorm"])  # waits for the device
+        return time.perf_counter() - t0, loss, gn
+
+    torch.cuda.synchronize()
+    warm_s, warm_loss, warm_gn = run(0)
+    # the first torch.utils.checkpoint call of a process imports
+    # torch._dynamo, and that import keeps its callers' frames (here up to
+    # a warm-up step's state, ~30 GB) until the collector's next full pass
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K5.reset_launches()  # ---- the main path starts here
+    for i in range(1, steps + 1):
+        dt, loss, gn = run(i)
+        step_s.append(dt)
+        losses.append(loss)
+        gnorms.append(gn)
+    launches = K5.LAUNCHES  # ---- and ends here
+    peak = torch.cuda.max_memory_allocated()
+    expected = cfg.num_layers * acc * 2 * steps
+    if launches != expected or launches == 0:
+        raise AssertionError(f"main_lm_train: {launches} flash_attention launches, want {expected}")
+    if not np.isfinite([warm_loss, warm_gn, *losses, *gnorms]).all():
+        raise AssertionError(f"main_lm_train: losses {losses}, gradient norms {gnorms}")
+    tokens = b * s
+    p50 = float(np.percentile(step_s, 50))
+    n = cfg.num_params()
+    traced = lm_train_step_profile(lambda: run(steps + 1)[1])
+    fixed = tuple(x[:2] for x in data(steps + 2))
+    step1 = LH.make_train_step(cfg, 1)
+    fixed_losses = [run(0, step1, fixed)[1] for _ in range(3)]
+    if not (np.isfinite(fixed_losses).all() and min(fixed_losses[1:]) < fixed_losses[0]):
+        raise AssertionError(f"main_lm_train: the fixed batch's losses {fixed_losses}")
+    del p, opt
+    torch.cuda.empty_cache()
+    return {"arch": arch.name, "cell": "llama3.2-1b-train_4k", "dtype": dtype_name(cfg.dtype), "remat": cfg.remat,
+            "num_params": n, "batch": b, "seq_len": s, "grad_accum": acc, "tokens_per_step": tokens,
+            "reduced": {"train_4k.global_batch": "256 -> 16 (8 microbatches of 2)"},
+            "warmup_step_s": warm_s, "step_s": step_s, "step_ms_p50": p50 * 1e3,
+            "step_ms_p99": float(np.percentile(step_s, 99)) * 1e3, "tokens_per_s": tokens / p50,
+            "model_flops_per_step": 6.0 * n * tokens,
+            "bf16_peak_share": 6.0 * n * tokens / p50 / BF16_OPS_PER_S,
+            "losses": [warm_loss, *losses], "gnorms": [warm_gn, *gnorms], "peak_device_memory": peak,
+            "launches": launches, "launches_expected": f"{cfg.num_layers} layers x {acc} microbatches x 2 "
+                                                       f"(forward, remat recompute) x {steps} steps",
+            "traced_step": traced, "fixed_batch_losses": fixed_losses}
+
+
+def adamw_check_tree(tree):
+    """``tree`` (a transformer's parameters or gradients) with each expert
+    stack cut to its first :data:`LM_CHECK_EXPERTS` experts; a dense or MLA
+    tree as it is."""
+    lay = tree["layers"]
+    return {**tree, "layers": {k: v[:, :LM_CHECK_EXPERTS] if k in EXPERT_STACKS else v for k, v in lay.items()}}
+
+
+def lm_train_card_vs_cpu(device) -> dict:
+    """llama3.2-1b, qwen2-moe-a2.7b and minicpm3-4b at ``full()`` widths cut
+    to 2 layers, float32, TF32 off, weights drawn on the card and copied to
+    the CPU: ``loss_fn``'s value and gradient on 2 x 128 tokens of
+    ``lm_batch`` (remat on) on both devices — the card's GQA through K5's
+    Function, the CPU's through ``chunked_attention``; MoE and MLA as on
+    the CPU — then one AdamW step (lr 3e-4) on the CPU's gradients on both
+    (:func:`adamw_check_tree`: qwen2-moe's expert stacks cut to their first
+    :data:`LM_CHECK_EXPERTS` experts).
+    Limits :data:`LM_CHECK_TOL`: the loss, each gradient leaf of its largest
+    |value|, each stepped leaf of its largest |value|."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import value_and_grad
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"tolerance": LM_CHECK_TOL, **LM_CHECK, "adamw_experts": LM_CHECK_EXPERTS}
+    for name in ("llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(name).full(), num_layers=LM_CHECK["layers"], dtype=torch.float32)
+        p_card = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED + 60), device=device)
+        p_cpu = tree_map(lambda x: x.cpu(), p_card)
+        t, lab = (torch.from_numpy(x).long() for x in lm_batch(0, batch=LM_CHECK["batch"], seq_len=LM_CHECK["seq"],
+                                                               vocab=cfg.vocab_size))
+        K5.reset_launches()  # ---- the card's training path starts here
+        l_card, g_card = value_and_grad(lambda p: tf.loss_fn(cfg, p, t.to(device), lab.to(device)), p_card)  # noqa: B023
+        launches = K5.LAUNCHES  # ---- and ends here
+        if launches != k5_calls(cfg, 2):
+            raise AssertionError(f"lm_train_card_vs_cpu {name}: {launches} flash_attention launches")
+        l_cpu, g_cpu = value_and_grad(lambda p: tf.loss_fn(cfg, p, t, lab), p_cpu)  # noqa: B023
+        loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        g_cpu_on_card = tree_map(lambda x: x.to(device), g_cpu)
+        grad_rel = _leaf_rel(g_card, g_cpu_on_card)
+        del g_card
+        row = {"num_params": cfg.num_params(), "loss_card": float(l_card), "loss_cpu": float(l_cpu),
+               "loss_rel_diff": loss_rel, "grad_leaf_rel_diff": grad_rel, "launches": launches}
+        pa_card, ga_card, pa_cpu, ga_cpu = map(adamw_check_tree, (p_card, g_cpu_on_card, p_cpu, g_cpu))
+        new_card, _, _ = adamw_update(pa_card, ga_card, adamw_init(pa_card), lr=3e-4)
+        new_cpu, _, _ = adamw_update(pa_cpu, ga_cpu, adamw_init(pa_cpu), lr=3e-4)
+        row["adamw_on_cpu_grads_leaf_rel_diff"] = _leaf_rel(new_card, new_cpu)
+        row["adamw_params"] = sum(x.numel() for x in tree_leaves(pa_cpu))
+        del new_card, new_cpu, pa_card, ga_card, pa_cpu, ga_cpu
+        row["seconds"] = time.perf_counter() - t0
+        out[name] = row
+        del p_card, p_cpu, g_cpu, g_cpu_on_card
+        gc.collect()  # the process's first checkpoint call keeps its callers' frames (main_lm_train)
+        torch.cuda.empty_cache()
+        if not (loss_rel <= LM_CHECK_TOL["loss_rtol"] and grad_rel <= LM_CHECK_TOL["leaf_rel"]
+                and row["adamw_on_cpu_grads_leaf_rel_diff"] <= LM_CHECK_TOL["adamw_leaf_rel"]):
+            raise AssertionError(f"lm_train_card_vs_cpu {name}: {row}")
+    return out
+
+
+def main_mind_train(device) -> dict:
+    """MIND's ``train_batch`` at ``full()`` size (an 8,388,608 x 64 float32
+    table, B = 65,536 users of 50 behaviours, 20 sampled negatives each),
+    uncut, through ``launch/train.mind_setup`` (AdamW at lr 1e-3) under
+    ``torch.use_deterministic_algorithms``: one warm-up and
+    :data:`MIND_TRAIN_STEPS` timed steps on ``mind_batch(step)``; step ms,
+    users/s, peak memory, every loss finite.  Then the card against the CPU
+    at B = :data:`MIND_CHECK_BATCH` on the same weights (TF32 off): the
+    loss and every gradient leaf (the dense table gradient too) within
+    :data:`MIND_CHECK_TOL`."""
+    import os
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import mind as MC
+    from repro_torch.configs.common import value_and_grad
+    from repro_torch.data.synthetic import mind_batch
+    from repro_torch.launch import train as T
+    from repro_torch.models.recsys import mind as m
+    from repro_torch.optim.adamw import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_arch("mind")
+    cfg = arch.full()
+    batch = MC.SHAPES["train_batch"].meta["batch"]
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # what deterministic cuBLAS asks for
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (p, opt), step_fn, data = T.mind_setup(arch, cfg, batch=batch, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params0 = tree_map(lambda x: x.clone(), p)
+        losses, step_s = [], []
+        for i in range(MIND_TRAIN_STEPS + 1):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            args = data(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, opt, met = step_fn(p, opt, *args)
+            losses.append(float(met["loss"]))  # waits for the device
+            step_s.append(time.perf_counter() - t0)
+            if not np.isfinite([losses[-1], float(met["gnorm"])]).all():
+                raise AssertionError(f"main_mind_train: step {i} loss {losses[-1]}, gnorm {float(met['gnorm'])}")
+        peak = torch.cuda.max_memory_allocated()
+        del p, opt
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    timed = step_s[1:]
+    p50 = float(np.percentile(timed, 50))
+    out = {"arch": arch.name, "cell": "mind-train_batch", "dtype": "float32", "allow_tf32": False,
+           "deterministic_algorithms": True, "batch": batch, "seq_len": cfg.seq_len, "negatives": 20,
+           "num_params": sum(x.numel() for x in params0.values()),
+           "table_bytes": params0["item_table"].numel() * 4, "init_s": init_s,
+           "warmup_step_s": step_s[0], "step_s": timed, "step_ms_p50": p50 * 1e3,
+           "step_ms_p99": float(np.percentile(timed, 99)) * 1e3, "users_per_s": batch / p50,
+           "losses": losses, "peak_device_memory": peak}
+    # the check: the card against the CPU on the first weights, B = 1,024
+    args = tuple(torch.from_numpy(x) for x in mind_batch(0, batch=MIND_CHECK_BATCH, seq_len=cfg.seq_len,
+                                                           num_items=cfg.num_items))
+    args = tuple(x.long() if x.dtype == torch.int32 else x for x in args)
+    l_card, g_card = value_and_grad(lambda q: m.loss_fn(cfg, q, *(x.to(device) for x in args)), params0)
+    host = tree_map(lambda x: x.cpu(), params0)
+    del params0
+    l_cpu, g_cpu = value_and_grad(lambda q: m.loss_fn(cfg, q, *args), host)
+    loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    grad_rel = _leaf_rel(g_card, g_cpu)
+    out["card_vs_cpu"] = {"batch": MIND_CHECK_BATCH, "loss_card": float(l_card), "loss_cpu": float(l_cpu),
+                          "loss_rel_diff": loss_rel, "grad_leaf_rel_diff": grad_rel, "tolerance": MIND_CHECK_TOL}
+    del g_card, g_cpu, host
+    torch.cuda.empty_cache()
+    if not (loss_rel <= MIND_CHECK_TOL["loss_rtol"] and grad_rel <= MIND_CHECK_TOL["leaf_rel"]):
+        raise AssertionError(f"main_mind_train: card vs CPU {out['card_vs_cpu']}")
     return out
 
 
@@ -4477,13 +4899,16 @@ def _loss_and_grads(loss_fn, params):
 
 
 def _leaf_rel(got, want) -> float:
-    """The largest over leaves of max |got - want| / max |want|."""
+    """The largest over leaves of max |got - want| / max |want|, computed on
+    ``got``'s device: each leaf of ``want`` is moved there (at full widths
+    seconds faster than pulling ``got`` to the CPU; the same subtractions
+    and maxima)."""
     from repro_torch.optim.adamw import tree_leaves
 
     worst = 0.0
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
-        b = b.detach().float()
-        worst = max(worst, float((a.detach().float().cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+        b = b.detach().to(a.device).float()
+        worst = max(worst, float((a.detach().float() - b).abs().max()) / max(float(b.abs().max()), 1e-30))
     return worst
 
 
@@ -4580,29 +5005,32 @@ def equiformer_full_depth(cpu_b, card_b, device) -> dict:
             "card_nudged_1e-7_grad_leaf_rel_diff": _leaf_rel(g_nud, g_card_cpu)}
 
 
+# the drill's pairs: (arch, steps, checkpoint every, fault before step)
+TRAIN_DRILL = {"gatedgcn": (20, 10, 15), "llama3.2-1b": (20, 10, 15), "mind": (20, 10, 15)}
+
+
 def train_drill_start() -> dict:
     """Start ``python -m repro_torch.launch.train`` as subprocesses on the
-    card (the reference's CLI at the smoke config), side by side: GatedGCN
-    20 steps with a checkpoint every 10 and an injected fault before step
-    15, the same with no fault (``main`` trains under
-    ``torch.use_deterministic_algorithms``), and EquiformerV2 for 5 steps.
-    They run while ``gnn_card_vs_cpu`` does (no time of either is held to
-    a limit); :func:`train_drill_finish` collects and checks them.
+    card (the reference's CLI at the smoke config), side by side: for each
+    arch of :data:`TRAIN_DRILL` (GatedGCN, llama3.2-1b, MIND) a run with a
+    checkpoint every 10 steps and an injected fault before step 15, and the
+    same with no fault (``main`` trains under
+    ``torch.use_deterministic_algorithms``); and EquiformerV2 for 5 steps.
+    They run beside the parity phases (no time of either is held to a
+    limit); :func:`train_drill_finish` collects and checks them.
     Checkpoints go under ``build/chip_smoke/`` and are removed after."""
     import os
     import shutil
 
     root = OUT_DIR / "train_ckpt"
     shutil.rmtree(root, ignore_errors=True)
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUBLAS_WORKSPACE_CONFIG": ":4096:8", **ONE_THREAD}
     base = [sys.executable, "-m", "repro_torch.launch.train", "--json"]
-    runs = {
-        "gatedgcn_clean": base + ["--arch", "gatedgcn", "--steps", "20", "--ckpt-every", "10",
-                                  "--ckpt-dir", str(root / "clean")],
-        "gatedgcn_drill": base + ["--arch", "gatedgcn", "--steps", "20", "--ckpt-every", "10",
-                                  "--inject-fault-at", "15", "--ckpt-dir", str(root / "drill")],
-        "equiformer": base + ["--arch", "equiformer-v2", "--steps", "5", "--ckpt-dir", str(root / "equi")],
-    }
+    runs = {"equiformer": base + ["--arch", "equiformer-v2", "--steps", "5", "--ckpt-dir", str(root / "equi")]}
+    for arch, (steps, every, fault) in TRAIN_DRILL.items():
+        cmd = base + ["--arch", arch, "--steps", str(steps), "--ckpt-every", str(every)]
+        runs[f"{arch}_clean"] = cmd + ["--ckpt-dir", str(root / f"{arch}_clean")]
+        runs[f"{arch}_drill"] = cmd + ["--inject-fault-at", str(fault), "--ckpt-dir", str(root / f"{arch}_drill")]
     procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
              for k, cmd in runs.items()}
     return {"procs": procs, "root": root, "t0": time.perf_counter()}
@@ -4620,7 +5048,7 @@ def train_drill_stop(handle: dict) -> None:
 
 
 def train_drill_finish(handle: dict) -> dict:
-    """The drill must restart once, its history hold the injected fault
+    """Each drill must restart once, its history hold the injected fault
     alone, and its losses and final parameters equal the run without the
     fault bit for bit; EquiformerV2's 5 losses finite."""
     res = {}
@@ -4633,18 +5061,25 @@ def train_drill_finish(handle: dict) -> dict:
             res[k] = {**json.loads(lines[-1]), "printed": lines[:-1]}
     finally:
         train_drill_stop(handle)
-    clean, drill, equi = res["gatedgcn_clean"], res["gatedgcn_drill"], res["equiformer"]
-    faults = [h for h in drill["history"] if h.startswith("fault")]
-    if drill["restarts"] != 1 or faults != ["fault@15:InjectedFault"] or clean["restarts"] != 0:
-        raise AssertionError(f"train_drill: restarts {drill['restarts']}, history {drill['history']}")
-    if drill["losses"] != clean["losses"] or drill["params_sha256"] != clean["params_sha256"]:
-        raise AssertionError(f"train_drill: the replay differs: {drill['losses']} vs {clean['losses']}")
-    if not np.isfinite(clean["losses"]).all() or not np.isfinite(equi["losses"]).all() or equi["steps"] != 5:
-        raise AssertionError(f"train_drill: losses {clean['losses']}, equiformer {equi}")
+    pairs = {}
+    for arch, (steps, _, fault) in TRAIN_DRILL.items():
+        clean, drill = res[f"{arch}_clean"], res[f"{arch}_drill"]
+        faults = [h for h in drill["history"] if h.startswith("fault")]
+        if drill["restarts"] != 1 or faults != [f"fault@{fault}:InjectedFault"] or clean["restarts"] != 0:
+            raise AssertionError(f"train_drill {arch}: restarts {drill['restarts']}, history {drill['history']}")
+        if drill["losses"] != clean["losses"] or drill["params_sha256"] != clean["params_sha256"]:
+            raise AssertionError(f"train_drill {arch}: the replay differs: {drill['losses']} vs {clean['losses']}")
+        if not np.isfinite(clean["losses"]).all() or clean["steps"] != steps:
+            raise AssertionError(f"train_drill {arch}: losses {clean['losses']}")
+        pairs[arch] = {"restarts": drill["restarts"], "history": drill["history"],
+                       "final_loss": drill["final_loss"], "losses": drill["losses"]}
+    equi = res["equiformer"]
+    if not np.isfinite(equi["losses"]).all() or equi["steps"] != 5:
+        raise AssertionError(f"train_drill: equiformer {equi}")
     return {"seconds_since_start": time.perf_counter() - handle["t0"], "runs": res,
             "replay": "bit-equal under torch.use_deterministic_algorithms(True): losses and the sha256 of the "
                       "final parameters equal the run without the fault",
-            "restarts": drill["restarts"], "history": drill["history"], "final_loss": drill["final_loss"]}
+            "pairs": pairs}
 
 
 def main() -> None:
@@ -4670,11 +5105,34 @@ def main() -> None:
 
     t0 = time.perf_counter()
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=len(sources)) as ex:
-        list(ex.map(_build.compile_source, sources))
+    builds = ThreadPoolExecutor(max_workers=len(sources))
+    built_at: dict[str, float] = {}
+    try:
+        futures = {s: builds.submit(_build.compile_source, s) for s in sources}
+        for s, f in futures.items():
+            f.add_done_callback(lambda _, s=s: built_at.setdefault(s, time.perf_counter()))
+        # the card-vs-CPU training check runs while the other sources compile
+        # (K5 first): its CPU half takes the cores nvcc leaves idle, one kept
+        # for nvcc, and nothing before the graph phases is timed
+        futures[K5.SOURCE].result()
+        K5._lib()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads - 1))
+        t1 = time.perf_counter()
+        try:
+            lm_check = lm_train_card_vs_cpu("cuda")
+        finally:
+            torch.set_num_threads(threads)
+        emit("lm_train_card_vs_cpu", **lm_check, seconds=time.perf_counter() - t1)
+        for f in futures.values():
+            f.result()
+    finally:
+        builds.shutdown(wait=True)
     for K in (K1, K2, K3, K4, K5):
         K._lib()
-    emit("build", seconds=time.perf_counter() - t0, sources=sources,
+    # seconds: from the first nvcc's start to the last one's end (the LM
+    # check's own seconds are on its line)
+    emit("build", seconds=max(built_at.values()) - t0, sources=sources,
          build_s={s: _build.build_info[s]["seconds"] for s in sources},
          ptxas={s: [ln for ln in _build.build_info[s]["log"].splitlines()
                     if "registers" in ln or "spill" in ln] for s in sources})
@@ -4725,27 +5183,38 @@ def main() -> None:
     emit("main_session", **session_out)
     serve_out = main_serve(graph0, stream, qsources, device=dev, chunk=chunk, num_updates=SERVE_UPDATES)
     emit("main_serve", **serve_out)
-    landmark_out = main_landmark(graph0, stream, qsources, device=dev, chunk=chunk)
+    landmark_out = main_landmark(graph0, stream, qsources, device=dev, chunk=chunk, num_updates=LANDMARK_UPDATES)
     emit("main_landmark", **landmark_out)
     del graph0
     torch.cuda.empty_cache()
 
-    emit("parity_fused", **parity_fused(dev))
-    parity_sh = parity_sharded(dev)
-    emit("parity_sharded", **parity_sh)
-    emit("parity_vdc", **parity_vdc(dev))
-    emit("parity_session", **parity_session(dev))
-    emit("parity_planner", **parity_planner(dev))
-    drill = cqp_serve_drill()
+    # the CLI drills run as subprocesses beside the parity phases, which time
+    # nothing
+    cqp_run = cqp_serve_drill_start()
+    train_run = train_drill_start()
+    try:
+        emit("parity_fused", **parity_fused(dev))
+        parity_sh = parity_sharded(dev)
+        emit("parity_sharded", **parity_sh)
+        emit("parity_vdc", **parity_vdc(dev))
+        emit("parity_session", **parity_session(dev))
+        emit("parity_planner", **parity_planner(dev))
+        drill = cqp_serve_drill_finish(cqp_run)
+    except BaseException:
+        train_drill_stop(train_run)
+        raise
     emit("cqp_serve_drill", **drill)
+    emit("train_drill", **train_drill_finish(train_run))
 
     lm_capture, long_capture = FlashCapture(K5.flash_attention), FlashCapture(K5.flash_attention)
     lm_out, params = main_lm(dev, lm_capture)
     emit("main_lm", **lm_out)
     long_out = main_lm_long(dev, params, long_capture)
     emit("main_lm_long", **long_out)
+    lm_train_out = main_lm_train(dev, params)
     del params
     torch.cuda.empty_cache()
+    emit("main_lm_train", **lm_train_out)
     f32_capture = FlashCapture(K5.flash_attention)
     f32_out = main_lm_f32(dev, f32_capture)
     emit("main_lm_f32", **f32_out)
@@ -4757,6 +5226,9 @@ def main() -> None:
     mla_out = main_mla(dev)
     emit("main_mla", **mla_out)
     emit("main_mind", **main_mind(dev))
+    emit("main_mind_train", **main_mind_train(dev))
+    k5_grad_out = k5_grad(dev)
+    emit("k5_grad", **k5_grad_out)
     flash = {"prefill": flash_real(lm_capture.calls["prefill"]),
              "decode": flash_real(lm_capture.calls["decode"]),
              "prefill_32k": flash_real(long_capture.calls["prefill"]),
@@ -4780,13 +5252,7 @@ def main() -> None:
     emit("other_semirings", **other_semirings(dev))
     gnn = main_gnn(dev)
     emit("main_gnn_summary", **{k: v for k, v in gnn.items() if k != "cells"})
-    train_run = train_drill_start()
-    try:
-        emit("gnn_card_vs_cpu", **gnn_card_vs_cpu(dev))
-    except BaseException:
-        train_drill_stop(train_run)
-        raise
-    emit("train_drill", **train_drill_finish(train_run))
+    emit("gnn_card_vs_cpu", **gnn_card_vs_cpu(dev))
 
     mp = real1["min_plus"]
     k2 = real["none"]
@@ -4807,12 +5273,16 @@ def main() -> None:
                 for k in ("ell_spmv", "fused_sweep", "bloom", "diff_lookup")}
     # K5 over the LM runs, each counted from 0: prefill + decode, lm_serve,
     # the 32k cell, float32; qwen2-moe's prefill + decode, lm_serve and 32k
-    # decode; minicpm3's (MLA: none)
+    # decode; minicpm3's (MLA: none); llama's timed train steps (forward and
+    # remat recompute) and the 2-layer card-vs-CPU gradients
     lm_launches = {"lm_prefill_and_decode": lm_out["launches"], "lm_serve": lm_out["lm_serve"]["launches"],
                    "lm_long": long_out["launches"], "lm_f32": f32_out["launches"],
                    "moe_prefill_and_decode": moe_out["launches"], "moe_serve": moe_out["lm_serve"]["launches"],
                    "moe_long": moe_long_out["launches"], "mla_prefill_and_decode": mla_out["launches"],
-                   "mla_long": mla_out["decode_32k"]["launches"], "mla_serve": mla_out["lm_serve"]["launches"]}
+                   "mla_long": mla_out["decode_32k"]["launches"], "mla_serve": mla_out["lm_serve"]["launches"],
+                   "lm_train": lm_train_out["launches"],
+                   **{f"train_card_vs_cpu_{n}": lm_check[n]["launches"]
+                      for n in ("llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b")}}
     k5 = flash["prefill"]
     print(json.dumps({"kernels": [
         {
@@ -4903,6 +5373,10 @@ def main() -> None:
             "form": "prefill (8 x 4096, bf16, causal, D=64)",
             "head_dims": list(FLASH_DIMS),
             "by_form": flash,
+            # training: the Function's backward is plain PyTorch (the reference's kernel has none)
+            "backward": {f"{r['dtype']}_d{r['d']}": {k: r[k] for k in (
+                "grad_rel_diff", "plain_backward_ms", "library_backward_ms", "bound_ms", "bound_by")}
+                for r in k5_grad_out["cases"]},
         },
     ]}), flush=True)
     print(smi, flush=True)

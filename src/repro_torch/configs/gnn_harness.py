@@ -23,12 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.common import ShapeDef
+from repro_torch.configs.common import ShapeDef, value_and_grad
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.sampler import CSRGraph, SampledSubgraph
 from repro_torch.models.gnn import common as g
 from repro_torch.optim import adamw_update
-from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
 
 GNN_SHAPES = {
     "full_graph_sm": ShapeDef("train", dict(n_nodes=2708, n_edges=10556, d_feat=1433)),
@@ -74,14 +73,9 @@ def make_gnn_train_step(loss_fn):
     autograd (the reference's ``value_and_grad``), then AdamW at lr 1e-3."""
 
     def train_step(params, opt_state, *batch_args):
-        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
-        leaves = tree_leaves(p)
-        loss = loss_fn(p, *batch_args)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(params, [torch.zeros_like(x) if gr is None else gr
-                                        for x, gr in zip(leaves, grads)])
+        loss, grads = value_and_grad(lambda p: loss_fn(p, *batch_args), params)
         new_params, new_opt, gnorm = adamw_update(params, grads, opt_state, lr=1e-3)
-        return new_params, new_opt, {"loss": loss.detach(), "gnorm": gnorm}
+        return new_params, new_opt, {"loss": loss, "gnorm": gnorm}
 
     return train_step
 

@@ -22,6 +22,7 @@ import dataclasses
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
 # An update is (u, v, label, weight, +1|-1) as in the paper §3.1.
 Update = tuple[int, int, int, float, int]
@@ -43,10 +44,13 @@ def _ell_cells(dst: np.ndarray, valid: np.ndarray, num_vertices: int):
     live = np.nonzero(valid)[0]
     rows = dst[live].astype(np.int64)
     indeg = np.bincount(rows, minlength=num_vertices)
-    order = np.argsort(rows, kind="stable")  # stable: slot order within a row
+    # stable: slot order within a row.  torch's CPU sort of int64 keys (a
+    # parallel radix sort) takes about a third of numpy's stable argsort at
+    # cit-Patents' 15 M edges, and every ELL engine build sorts twice
+    keys, order = torch.sort(torch.from_numpy(rows), stable=True)
     start = np.cumsum(indeg) - indeg
     cols = np.empty(live.shape[0], np.int64)
-    cols[order] = np.arange(live.shape[0]) - start[rows[order]]
+    cols[order.numpy()] = np.arange(live.shape[0]) - start[keys.numpy()]
     return live, rows, cols, indeg
 
 

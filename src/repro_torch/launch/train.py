@@ -1,7 +1,8 @@
-"""Training entry point of the port: the GNN archs under the production runtime —
-checkpoint/restart under the fault supervisor and straggler detection.
+"""Training entry point of the port: the LM, recsys and GNN archs under the
+production runtime — checkpoint/restart under the fault supervisor and
+straggler detection.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --steps 20                                        # on the GPU
     ... --device cpu                                      # plain PyTorch on the CPU
     ... --ckpt-every 10 --inject-fault-at 15              # a fault drill
@@ -9,26 +10,28 @@ checkpoint/restart under the fault supervisor and straggler detection.
 
 The port of ``repro/launch/train.py``'s ``main`` with its command line
 (``--smoke`` is accepted: ``main`` trains the smoke config, as the
-reference's does) and its printed lines.  It adds ``--device`` (default:
-the CUDA device) and ``--json`` (a last line with every step's loss and
-wall seconds, the history and a digest of the final parameters).  Without
-``--ckpt-dir`` a run checkpoints into a fresh directory of its own under
-the temporary directory and removes it at the end, so a restart restores
-only what this run wrote (the reference's fixed ``/tmp/repro_ckpt`` would
-let a faulted run resume from another run's newest step).  ``main`` runs
-under ``torch.use_deterministic_algorithms`` (restored on return), so a
-replayed step equals its first run bit for bit on the card too, where
-``index_add_`` otherwise sums in any order.  :func:`gnn_setup` also takes
-a config, a batch and triplets, so a caller can train ``arch.full()`` on a
-real-size batch.
+reference's does) and its printed lines, for ``llama3.2-1b``,
+``qwen2-moe-a2.7b``, ``minicpm3-4b``, ``mind`` and the four GNNs
+(``qwen2-72b`` and ``arctic-480b`` wait for the mesh path, ROADMAP Queue 1
+item 9(f)).  It adds ``--device`` (default: the CUDA device) and ``--json``
+(a last line with every step's loss and wall seconds, the history and a
+digest of the final parameters).  Without ``--ckpt-dir`` a run checkpoints
+into a fresh directory of its own under the temporary directory and
+removes it at the end, so a restart restores only what this run wrote (the
+reference's fixed ``/tmp/repro_ckpt`` would let a faulted run resume from
+another run's newest step).  ``main`` runs under
+``torch.use_deterministic_algorithms`` (restored on return), so a replayed
+step equals its first run bit for bit on the card too, where ``index_add_``
+otherwise sums in any order.  :func:`lm_setup` and :func:`mind_setup` also
+take a config, a batch size and parameters, :func:`gnn_setup` a config, a
+batch and triplets, so a caller can train ``arch.full()`` at a real size.
 
 The reference's GNN setup draws the smoke batch's labels from 8 classes
 for configs of 4 (PNA, GatedGCN), so its loss is NaN from the first step
 (``take_along_axis`` fills out-of-range labels with NaN; the port's loss
 does the same).  The port draws them from ``cfg.num_classes`` — the same
 draws otherwise, labels being the batch's last — so the drill's losses are
-finite (ROADMAP Queue 3).  LM and MIND training wait for ROADMAP Queue 1
-item 9(e).
+finite (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -98,6 +101,58 @@ def gnn_setup(arch, cfg, batch=None, device=None, *, triplets=None):
     return (params, opt), step_fn, data
 
 
+def lm_setup(arch, cfg, *, batch: int = 4, seq: int = 32, grad_accum: int = 1, params=None,
+             device=None):
+    """(state, step_fn, data) for an LM arch, as the reference's
+    ``_lm_setup``: parameters from ``init_params`` with a
+    ``torch.Generator`` seeded 0 (or ``params``), AdamW's state,
+    :func:`~repro_torch.configs.lm_harness.make_train_step` with
+    ``grad_accum``, and ``data(step)`` giving ``lm_batch(step)``'s tokens
+    and labels ``[batch, seq]`` on the device."""
+    from repro_torch.configs.lm_harness import make_train_step
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as tf
+
+    dev = resolve_device(device)
+    if params is None:
+        params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, grad_accum)
+
+    def data(step):
+        t, lab = lm_batch(step, batch=batch, seq_len=seq, vocab=cfg.vocab_size)
+        return tuple(torch.from_numpy(x).to(dev, torch.long) for x in (t, lab))
+
+    return (params, opt), step_fn, data
+
+
+def mind_setup(arch, cfg, *, batch: int = 32, params=None, device=None):
+    """(state, step_fn, data) for MIND, as the reference's ``_mind_setup``:
+    parameters from ``init_params`` with a ``torch.Generator`` seeded 0 (or
+    ``params``), AdamW's state, :func:`~repro_torch.configs.mind.make_train_step`,
+    and ``data(step)`` giving ``mind_batch(step)``'s behaviour, validity,
+    targets and 20 negatives a user on the device."""
+    from repro_torch.configs.mind import make_train_step
+    from repro_torch.data.synthetic import mind_batch
+    from repro_torch.models.recsys import mind as m
+
+    dev = resolve_device(device)
+    if params is None:
+        params = m.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg)
+
+    def data(step):
+        b, v, t, n = mind_batch(step, batch=batch, seq_len=cfg.seq_len, num_items=cfg.num_items)
+        return (torch.from_numpy(b).to(dev, torch.long), torch.from_numpy(v).to(dev),
+                torch.from_numpy(t).to(dev, torch.long), torch.from_numpy(n).to(dev, torch.long))
+
+    return (params, opt), step_fn, data
+
+
+SETUPS = {"lm": lm_setup, "recsys": mind_setup, "gnn": gnn_setup}
+
+
 def params_digest(params) -> str:
     """sha256 over the parameter leaves' bytes in tree order."""
     h = hashlib.sha256()
@@ -124,9 +179,6 @@ def main(argv=None) -> dict:
         arch = get_arch(args.arch)
     except KeyError as e:
         raise SystemExit(str(e)) from None
-    if arch.family != "gnn":
-        raise SystemExit(f"{arch.name}: training of the {arch.family} family is not ported yet "
-                         f"(ROADMAP Queue 1 item 9(e))")
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # read when cuBLAS starts
     was_deterministic = torch.are_deterministic_algorithms_enabled()
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_ckpt_")
@@ -142,7 +194,7 @@ def main(argv=None) -> dict:
 def _train(args, arch, ckpt_dir: str) -> dict:
     dev = resolve_device(args.device)
     cfg = arch.smoke()
-    state, step_fn, data = gnn_setup(arch, cfg, device=dev)
+    state, step_fn, data = SETUPS[arch.family](arch, cfg, device=dev)
 
     ckpt = CheckpointManager(ckpt_dir, keep=2)
     detector = StragglerDetector()

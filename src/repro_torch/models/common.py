@@ -5,8 +5,8 @@ The port of ``repro/models/common.py`` for one device: parameters are plain
 dicts of tensors, created through :class:`ParamFactory` on a
 ``torch.Generator``.  The reference's logical-axis specs, ``constrain`` and
 ``activation_mesh`` only place arrays on a mesh, and the ``dlse_*``
-attentions run only under one, so they have no counterpart here (nor, until
-training is ported, ``cross_entropy_loss``).
+attentions run only under one, so they have no counterpart here (ROADMAP
+Queue 1 item 9(f)).  :func:`cross_entropy_loss` is the LM training loss.
 
 Each function promotes types as the reference does: a bfloat16 tensor times
 a float32 one computes in float32, and the reference's casts back to the
@@ -166,3 +166,12 @@ def chunked_attention(
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.reshape(b, hq, bq, dv).to(q.dtype))
     return torch.cat(outs, dim=2)[:, :, :sq]
+
+
+def cross_entropy_loss(logits: Tensor, labels: Tensor) -> Tensor:
+    """Mean token cross-entropy: logits ``[..., vocab]`` (cast to float32),
+    labels ``[...]`` of integer ids; ``logsumexp`` minus the gold logit."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

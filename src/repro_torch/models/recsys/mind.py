@@ -5,9 +5,10 @@ sequence → item-table gathers → Behaviour-to-Interest (B2I) capsule routing
 (``capsule_iters`` rounds, squash nonlinearity, shared bilinear map; the
 reference's ``lax.scan`` is a Python loop) → K interest capsules →
 label-aware attention for training / max-dot scoring for retrieval.
-Parameters are float32, as the reference's.  :func:`loss_fn` gives the
-training loss's value; training itself waits for its slice (ROADMAP
-Queue 1 item 9(e)).
+Parameters are float32, as the reference's.  :func:`loss_fn` is the
+training loss; ``configs/mind.make_train_step`` takes its gradient by
+autograd, through the item table's gathers (a dense table gradient, as
+the reference's ``jnp.take``), and the AdamW step.
 
 ``retrieval_scores`` scores one user against 10⁶ candidates with a single
 [K, D] × [D, N] product.

@@ -4,8 +4,16 @@ the MoE FFN with shared experts or a dense residual.
 The port of ``repro/models/transformer.py`` for one device.  Parameters are
 a dict of tensors with the reference's nesting and names, layers stacked
 ``[L, ...]``; :func:`forward` walks the layers in a Python loop, which
-computes what the reference's ``lax.scan`` (and its ``remat``) computes.
-The config keeps every field of the reference's so configs read the same.
+computes what the reference's ``lax.scan`` computes.  The config keeps
+every field of the reference's so configs read the same.
+
+Training: :func:`loss_fn` is the reference's (token cross-entropy plus 0.01
+x the MoE aux loss) over ``forward(..., keep_cache=False)``, which keeps no
+per-layer keys and values and, with ``cfg.remat`` under grad mode, runs
+each layer under ``torch.utils.checkpoint`` (non-reentrant), the
+reference's ``jax.checkpoint``: the backward pass recomputes the layer
+from its input.  ``configs/lm_harness.make_train_step`` takes the
+gradients and the AdamW step.
 The reference's mesh-only decode attentions (``dlse_*``) wait for the mesh
 slice (ROADMAP Queue 1 item 9(f)).
 
@@ -15,7 +23,10 @@ from position 0) and a one-token decode against the cache prefix
 ``[:pos[0] + 1]``, one valid length for the whole batch.  GQA on a CUDA
 device runs the hand-written kernel K5 (``kernels/flash_attn.py``), the
 decode on a strided view of the cache, on q scaled by ``D**-0.5`` in q's
-dtype first, as the reference's attention scales it; on the CPU it runs
+dtype first, as the reference's attention scales it; under grad mode the
+prefill's call goes through ``flash_attention.FlashAttention``, K5 forward
+with a plain PyTorch backward (the reference's kernel has none), so a
+recomputed layer launches K5 once more; on the CPU it runs
 :func:`common.chunked_attention` with the reference's arguments.  MLA
 (keys of nope + rope dims, values of another) runs ``chunked_attention`` on
 either device, as the reference does; its decode expands only the valid
@@ -34,6 +45,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import flash_attn as fa
@@ -72,8 +84,9 @@ class TransformerConfig:
     capacity_factor: float = 1.25
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
-    # the reference's XLA compile knobs: a Python loop over the layers
-    # computes the same function either way
+    # remat: each layer checkpointed in training (forward(keep_cache=False));
+    # scan_layers is the reference's XLA compile knob: a Python loop over
+    # the layers computes the same function either way
     remat: bool = True
     scan_layers: bool = True
     # chunked_attention's blocks (GQA on the CPU; MLA everywhere)
@@ -315,10 +328,17 @@ def forward(
     *,
     cache: Any = None,  # stacked per-layer cache (decode) or None
     positions: Tensor | None = None,  # [B, S] absolute positions
+    keep_cache: bool = True,
 ):
     """Returns (logits [B, S, vocab], new_cache, aux_loss): the MoE layers'
     aux losses summed (zero for a dense config).  A decode call (``cache``
-    given) updates ``cache`` in place and returns it."""
+    given) updates ``cache`` in place and returns it.
+
+    ``keep_cache=False`` (training's :func:`loss_fn`) keeps no per-layer
+    keys and values and returns ``None`` for the cache; then, with
+    ``cfg.remat`` under grad mode, each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
+    activations are recomputed in the backward pass, only its input kept."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
@@ -330,28 +350,50 @@ def forward(
             raise ValueError(f"decode takes one token per row at positions in [0, {smax}); "
                              f"got S={s}, positions {pos.tolist()}")
         kv_len = int(pos[0]) + 1
+    remat = cache is None and not keep_cache and cfg.remat and torch.is_grad_enabled()
     x = params["embed"][tokens].to(cfg.dtype)
     lay = params["layers"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     firsts, seconds = [], []
     for i in range(cfg.num_layers):
         w = {name: a[i] for name, a in lay.items()}
-        cache_l = None if cache is None else (cache[0][i], cache[1][i])
-        with cm.profile_range("attention"):
-            attn_out, (c0, c1) = _attention(cfg, w, cm.rms_norm(x, w["attn_norm"]), positions,
-                                            cache_l, kv_len)
-        x = x + attn_out
-        with cm.profile_range("mlp"):
-            mlp_out, aux_l = _mlp(cfg, w, cm.rms_norm(x, w["mlp_norm"]))
-        x = x + mlp_out
+        if remat:
+            # non-reentrant: the layer's parameters are read from ``w``
+            x, aux_l = checkpoint(_layer_without_cache, cfg, w, x, positions, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            cache_l = None if cache is None else (cache[0][i], cache[1][i])
+            x, aux_l, (c0, c1) = _layer(cfg, w, x, positions, cache_l, kv_len)
+            if cache is None and keep_cache:
+                firsts.append(c0)
+                seconds.append(c1)
         aux = aux + aux_l
-        if cache is None:
-            firsts.append(c0)
-            seconds.append(c1)
-    new_cache = cache if cache is not None else (torch.stack(firsts), torch.stack(seconds))
+    if cache is not None:
+        new_cache = cache
+    else:
+        new_cache = (torch.stack(firsts), torch.stack(seconds)) if keep_cache else None
     x = cm.rms_norm(x, params["final_norm"])
     logits = x @ params["lm_head"]
     return logits, new_cache, aux
+
+
+def _layer(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor, cache_l=None,
+           kv_len: int | None = None):
+    """One layer: ``(x + attention + MLP, the layer's aux, its cache entry)``."""
+    with cm.profile_range("attention"):
+        attn_out, new_cache_l = _attention(cfg, w, cm.rms_norm(x, w["attn_norm"]), positions,
+                                           cache_l, kv_len)
+    x = x + attn_out
+    with cm.profile_range("mlp"):
+        mlp_out, aux = _mlp(cfg, w, cm.rms_norm(x, w["mlp_norm"]))
+    return x + mlp_out, aux, new_cache_l
+
+
+def _layer_without_cache(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor):
+    """:func:`_layer` returning only ``(x, aux)``: under remat no per-layer
+    key or value outlives the layer."""
+    x, aux, _ = _layer(cfg, w, x, positions)
+    return x, aux
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, device=None):
@@ -374,3 +416,10 @@ def decode_step(cfg: TransformerConfig, params: dict, cache, tokens: Tensor, pos
     logits, new_cache, _ = forward(cfg, params, tokens[:, None], cache=cache,
                                    positions=pos[:, None])
     return logits[:, 0], new_cache
+
+
+def loss_fn(cfg: TransformerConfig, params: dict, tokens: Tensor, labels: Tensor) -> Tensor:
+    """Training loss: mean token cross-entropy of the logits against
+    ``labels`` plus 0.01 x the MoE aux loss, the reference's."""
+    logits, _, aux = forward(cfg, params, tokens, keep_cache=False)
+    return cm.cross_entropy_loss(logits, labels) + 0.01 * aux

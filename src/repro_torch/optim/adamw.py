@@ -33,18 +33,20 @@ def tree_leaves(tree) -> list:
 
 def tree_unflatten(tree, leaves):
     """``tree``'s structure with its leaves taken in order from ``leaves``."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return type(t)(*(build(x) for x in t))
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
 
-    return build(tree)
+def _build(t, it):
+    # a module-level function, not a closure: a recursive closure is a
+    # reference cycle that would keep ``leaves`` (a step's parameters or
+    # moments) alive until the collector's next full pass
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_build(x, it) for x in t))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
 
 def tree_map(fn, tree, *rest):

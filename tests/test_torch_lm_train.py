@@ -1,0 +1,304 @@
+"""Port parity: LM training (``models/transformer.loss_fn``,
+``configs/lm_harness.make_train_step``, remat) and K5's backward pass.
+
+The reference's three ported LM smoke configs (``llama3.2-1b``,
+``qwen2-moe-a2.7b``, ``minicpm3-4b``: 2 layers, d=64, float32; GQA, the
+MoE FFN with the gated shared expert and QKV bias, MLA), weights drawn by
+the reference's ``init_params`` and carried across, tokens and labels from
+``data/synthetic.lm_batch`` (the same draws in both packages):
+
+- ``loss_fn`` and its gradient against ``jax.value_and_grad`` of the
+  reference's: the loss within rtol 1e-5, each gradient leaf within 1e-4 of
+  its largest |value|;
+- three ``make_train_step`` steps against the reference's jitted step at
+  ``grad_accum`` 1 and 2: losses within rtol 1e-5, gradient norms within
+  1e-4, each final leaf within 1e-4 of its largest |value|;
+- ``cfg.remat`` on and off giving the same loss and gradients bit for bit
+  (the recomputation repeats the same float32 operations).
+
+AdamW steps an element by ``lr x m / (sqrt(v) + eps)``.  Where the
+denominator's ``sqrt(v)`` comes within a few ``eps`` = 1e-8 (a gradient
+that is a cancelled sum: qwen2-moe's bk, layer 1, element 63 at
+``grad_accum`` 2, two microbatches' +-2.9e-6 summing to -1.99e-8 in the
+reference and -1.97e-8 here), a difference of 1e-10 in the gradient moves
+the step by 1e-10 / eps = 1% of lr.  In a leaf that starts at zero
+(qwen2-moe's QKV biases and shared-expert gate), whose largest value is
+about 3 lr, that is far above 1e-4 of it.  So the final leaves are held
+element by element: an element whose bias-corrected ``sqrt(v)`` in the
+reference's AdamW state came to at most :data:`NEAR_EPS` x eps after any
+step is held within 1% of lr a step (2.7e-6 over three steps) or 1e-4
+of its leaf's largest |value|, whichever is larger, every other element
+within the latter.  The rule reads
+the reference's state only; the test also counts the elements it frees,
+and at least one element of qwen2-moe at ``grad_accum`` 2 must be among
+them (the case above).
+
+K5's :class:`~repro_torch.kernels.flash_attn.FlashAttention` on the CPU
+(where its forward is the plain version): its plain backward against
+autograd through ``flash_attention_plain`` (causal and not, GQA and MQA,
+Sq != Sk, D = 16, 64, 128, in one row block and in several; float32 within
+1e-5 of each gradient's largest value, bfloat16 within 2^-6), a float64
+``gradcheck``, and the repair: a grad-requiring call whose forward is the
+card's (faked here by a kernel stand-in that, like the real launch, returns
+a tensor autograd has never seen) returns an output with a ``grad_fn``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import lm_harness as H
+from repro_torch.configs.common import value_and_grad
+from repro_torch.core.convert import transformer_params_from_reference
+from repro_torch.data.synthetic import lm_batch
+from repro_torch.kernels import flash_attn as K5
+from repro_torch.models import transformer as tf
+from repro_torch.optim import adamw_init
+from repro_torch.optim.adamw import tree_leaves
+
+ARCHS = ["llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b"]
+BATCH, SEQ = 4, 32
+LR, STEPS = 3e-4, 3
+# the reference's AdamW (repro/optim/adamw.py): b2 and eps; an element whose
+# sqrt(v-hat) came within NEAR_EPS x eps is held to 1% of lr a step (module
+# docstring)
+B2, EPS, NEAR_EPS = 0.95, 1e-8, 10.0
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: the smoke configs' operations are tiny,
+    and the suite's parallel workers would otherwise run eight threads each
+    on the same cores, which slowed these tests up to a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _setup(name):
+    """The reference's smoke config, its weights (numpy) and the port's
+    config and weights carried across."""
+    import jax
+
+    from repro.configs import get_arch as ref_get_arch
+    from repro.models import transformer as rtf
+
+    rcfg = ref_get_arch(name).smoke()
+    fields = {f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)}
+    cfg = tf.TransformerConfig(**{**fields, "dtype": torch.float32})
+    rparams = jax.tree.map(np.asarray, rtf.init_params(rcfg, jax.random.PRNGKey(0)))
+    return rcfg, rparams, cfg, transformer_params_from_reference(rparams, "cpu")
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def _batch(step, vocab):
+    t, lab = lm_batch(step, batch=BATCH, seq_len=SEQ, vocab=vocab)
+    return (t, lab), tuple(torch.from_numpy(x).long() for x in (t, lab))
+
+
+def _leaf_rel(got, want) -> float:
+    want = np.asarray(want)
+    return float(np.abs(got.detach().numpy() - want).max()) / max(float(np.abs(want).max()), 1e-30)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_loss_and_gradients_match_the_references_value_and_grad(name):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import transformer as rtf
+
+    rcfg, rparams, cfg, params = _setup(name)
+    (t, lab), (pt, plab) = _batch(0, cfg.vocab_size)
+    rloss, rgrads = jax.value_and_grad(lambda p: rtf.loss_fn(rcfg, p, jnp.asarray(t), jnp.asarray(lab)))(rparams)
+    loss, grads = value_and_grad(lambda p: tf.loss_fn(cfg, p, pt, plab), params)
+    np.testing.assert_allclose(float(loss), float(rloss), rtol=1e-5)
+    for path, a, b in zip(_paths(params), tree_leaves(grads), jax.tree.leaves(rgrads)):
+        assert _leaf_rel(a, b) <= 1e-4, path
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+@pytest.mark.parametrize("name", ARCHS)
+def test_three_train_steps_match_the_references_jitted_step(name, grad_accum):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.lm_harness import make_train_step as ref_step
+    from repro.optim import adamw_init as ref_init
+
+    rcfg, rparams, cfg, params = _setup(name)
+    rstep = jax.jit(ref_step(rcfg, grad_accum))
+    pstep = H.make_train_step(cfg, grad_accum)
+    rp, ro, pp, po = rparams, ref_init(rparams), params, adamw_init(params)
+    near_eps = [np.zeros(np.shape(x), bool) for x in jax.tree.leaves(rparams)]
+    for step in range(STEPS):
+        (t, lab), (pt, plab) = _batch(step, cfg.vocab_size)
+        rp, ro, rm = rstep(rp, ro, jnp.asarray(t), jnp.asarray(lab))
+        pp, po, pm = pstep(pp, po, pt, plab)
+        np.testing.assert_allclose(float(pm["loss"]), float(rm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(pm["gnorm"]), float(rm["gnorm"]), rtol=1e-4)
+        for m, nu in zip(near_eps, jax.tree.leaves(ro.nu)):
+            m |= np.sqrt(np.asarray(nu) / (1.0 - B2 ** (step + 1))) <= NEAR_EPS * EPS
+    assert int(po.step) == int(ro.step) == STEPS
+    freed = 0
+    for path, a, b, m in zip(_paths(params), tree_leaves(pp), jax.tree.leaves(rp), near_eps):
+        diff, b = np.abs(a.numpy() - np.asarray(b)), np.asarray(b)
+        rel = 1e-4 * max(float(np.abs(b).max()), 1e-30)
+        assert float(diff[~m].max(initial=0.0)) <= rel, path
+        assert float(diff[m].max(initial=0.0)) <= max(rel, 1e-2 * LR * STEPS), path
+        freed += int(m.sum())
+    if (name, grad_accum) == ("qwen2-moe-a2.7b", 2):
+        assert freed > 0
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_remat_on_and_off_give_the_same_gradients(name):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(name).smoke()
+    assert cfg.remat
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    _, (t, lab) = _batch(1, cfg.vocab_size)
+    loss, grads = value_and_grad(lambda p: tf.loss_fn(cfg, p, t, lab), params)
+    plain = dataclasses.replace(cfg, remat=False)
+    loss0, grads0 = value_and_grad(lambda p: tf.loss_fn(plain, p, t, lab), params)
+    assert torch.equal(loss, loss0)
+    for a, b in zip(tree_leaves(grads), tree_leaves(grads0)):
+        assert torch.equal(a, b)
+
+
+def test_training_forward_keeps_no_cache_and_serving_keeps_it():
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("llama3.2-1b").smoke()
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    _, (t, _) = _batch(0, cfg.vocab_size)
+    logits, cache, _ = tf.forward(cfg, params, t, keep_cache=False)
+    assert cache is None
+    with torch.no_grad():
+        served, (ck, cv), _ = tf.forward(cfg, params, t)
+    assert ck.shape == cv.shape == (cfg.num_layers, BATCH, cfg.num_kv_heads, SEQ, cfg.head_dim)
+    assert torch.equal(logits.detach(), served)
+
+
+def test_make_train_step_refuses_a_batch_it_cannot_split():
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("llama3.2-1b").smoke()
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    _, (t, lab) = _batch(0, cfg.vocab_size)
+    with pytest.raises(ValueError, match="does not split into 3 microbatches"):
+        H.make_train_step(cfg, 3)(params, adamw_init(params), t, lab)
+
+
+def test_a_train_step_frees_the_state_it_replaces_without_the_collector():
+    """With Python's collector off, the parameters and moments a step
+    returns are freed once dropped: no reference cycle (a recursive closure
+    in the tree helpers was one) keeps a step's state alive until the
+    collector's next full pass, which at full width held gigabytes a step.
+    One step runs first: the first ``torch.utils.checkpoint`` call of a
+    process imports ``torch._dynamo``, and that import keeps its callers'
+    frames once, until the collector runs."""
+    import gc
+    import weakref
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("llama3.2-1b").smoke()
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    _, (t, lab) = _batch(0, cfg.vocab_size)
+    step = H.make_train_step(cfg, 2)
+    step(params, adamw_init(params), t, lab)
+    gc.collect()
+    gc.disable()
+    try:
+        p, o, m = step(params, adamw_init(params), t, lab)
+        refs = [weakref.ref(x) for x in tree_leaves((p, o, m))]
+        del p, o, m
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
+# ------------------------------------------------------------------- K5's backward
+# (b, hq, hkv, sq, sk, causal): GQA, MQA, MHA; Sq < Sk and Sq > Sk
+K5_CASES = [(2, 4, 2, 48, 48, True), (1, 4, 1, 40, 72, False), (1, 2, 2, 33, 20, True),
+            (2, 6, 3, 24, 56, True)]
+
+
+def _operands(b, hq, hkv, sq, sk, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype).requires_grad_(True)
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+@pytest.mark.parametrize("rows_per_block", [None, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_function_backward_matches_autograd_through_the_plain_version(case, d, dtype, rows_per_block,
+                                                                     monkeypatch):
+    """``rows_per_block=7``: the plain block shrunk so the backward walks
+    several row blocks, causal ones reading only their keys."""
+    b, hq, hkv, sq, sk, causal = case
+    if rows_per_block is not None:
+        monkeypatch.setattr(K5, "_PLAIN_BLOCK", rows_per_block * b * hq * sk)
+    q, k, v = _operands(b, hq, hkv, sq, sk, d, dtype, seed=d + sq)
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal((b, hq, sq, d)).astype(np.float32)).to(dtype)
+    out = K5.flash_attention(q, k, v, causal=causal, scale=0.3)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want_out = K5.flash_attention_plain(q, k, v, causal=causal, scale=0.3)
+    assert torch.equal(out, want_out.detach())
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    limit = 1e-5 if dtype == torch.float32 else 2.0**-6
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        w = w.float()
+        assert float((a.float() - w).abs().max()) <= limit * float(w.abs().max())
+
+
+def test_function_passes_gradcheck_in_float64():
+    """GQA (2 query heads a KV head), Sq < Sk, both masks; tiny, as the
+    numerical Jacobian takes two calls an input element."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_(True)
+               for s in ((1, 2, 3, 4), (1, 1, 4, 4), (1, 1, 4, 4)))
+    for causal in (True, False):
+        assert torch.autograd.gradcheck(lambda q, k, v: K5.FlashAttention.apply(q, k, v, causal, None),  # noqa: B023
+                                        (q, k, v))
+
+
+def test_grad_requiring_call_on_the_card_path_is_not_detached(monkeypatch):
+    """The card's forward stand-in returns, as the kernel's ctypes launch
+    does, a fresh tensor with no autograd history; under grad mode with
+    operands that require grad, ``flash_attention`` must still return an
+    output whose backward reaches q, k and v, and with no grad needed it
+    returns the kernel's output as it is."""
+    calls = []
+
+    def kernel(q, k, v, causal, scale):
+        calls.append(torch.is_grad_enabled())
+        with torch.no_grad():
+            return K5.flash_attention_plain(q, k, v, causal=causal, scale=scale).clone()
+
+    monkeypatch.setattr(K5, "_forward", kernel)
+    q, k, v = _operands(1, 4, 2, 16, 16, 64, torch.float32, seed=5)
+    out = K5.flash_attention(q, k, v, causal=True)
+    assert calls == [False] and out.requires_grad and out.grad_fn is not None
+    dq, dk, dv = torch.autograd.grad(out.square().sum(), (q, k, v))
+    want = torch.autograd.grad(K5.flash_attention_plain(q, k, v, causal=True).square().sum(), (q, k, v))
+    for a, w in zip((dq, dk, dv), want):
+        assert float(a.abs().max()) > 0
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        plain = K5.flash_attention(q, k, v, causal=True)
+    assert calls == [False, False] and plain.grad_fn is None
