@@ -2,6 +2,7 @@
 between source trees.
 
     python3 chip_ab.py TREE [TREE ...]
+    python3 chip_ab.py --graph TREE [TREE ...]
 
 Each TREE is a checkout of this repository (``.`` for this one).  The trees
 run one after another, each in a fresh process on the one card, with their
@@ -12,6 +13,14 @@ tier's run without checkpoints (``serve_run(ckpt_dir=None)``), each with
 the Python collector's seconds and collections inside it.  Give the trees
 as parent, change, change, parent, so the card's drift shows beside the
 change.  The lines also go to ``build/chip_ab.jsonl``.  Needs CUDA.
+
+``--graph`` times the host graph layer alone (no card, no kernels) at the
+same cit-Patents size, on a stream of 2**20 updates: the graph's build, the
+first 32-update chunk, 32 more such chunks, one batch of 2**16 updates and
+one of the remaining 2**20 - 2**16 - 33 * 32 (``apply_batch_resolved``), a
+full collection, ``copy_graph``, ``transpose_graph`` and a ``state_dict``
+/ ``from_state`` round trip, each in seconds; its lines go to
+``build/chip_ab_graph.jsonl``.
 """
 
 from __future__ import annotations
@@ -100,21 +109,70 @@ def child(tree: Path) -> dict:
     return out
 
 
+GRAPH_UPDATES, GRAPH_CHUNK, GRAPH_BATCH = 1 << 20, 32, 1 << 16
+
+
+def graph_child(tree: Path) -> dict:
+    sys.path.insert(0, str(tree / "src"))
+    spec = importlib.util.spec_from_file_location("chip_smoke", tree / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    from repro_torch.core.graph import DynamicGraph
+    from repro_torch.core.landmark import transpose_graph
+
+    clock = GcClock()
+    out: dict = {"tree": str(tree)}
+
+    def timed(name, fn):
+        mark, t0 = clock.mark(), time.perf_counter()
+        r = fn()
+        out[name] = {"s": time.perf_counter() - t0, **clock.since(mark)}
+        return r
+
+    graph, stream, _, build_s = cs.make_data(cs.PATENTS_V, cs.PATENTS_E, GRAPH_UPDATES - GRAPH_CHUNK, GRAPH_CHUNK, 8)
+    out["make_data_s"] = build_s
+    out["edges"] = int(graph.num_edges)
+    c = GRAPH_CHUNK
+    timed("first_chunk", lambda: graph.apply_batch_resolved(stream[:c]))
+    timed("chunks_32x32", lambda: [graph.apply_batch_resolved(stream[c * (k + 1): c * (k + 2)]) for k in range(32)])
+    at = 33 * c
+    timed("batch_65536", lambda: graph.apply_batch_resolved(stream[at: at + GRAPH_BATCH]))
+    rest = stream[at + GRAPH_BATCH:]
+    out["batch_rest_updates"] = len(rest)
+    timed("batch_rest", lambda: graph.apply_batch_resolved(rest))
+    for name in ("first_chunk", "chunks_32x32", "batch_65536", "batch_rest"):
+        n = {"first_chunk": c, "chunks_32x32": 32 * c, "batch_65536": GRAPH_BATCH}.get(name, len(rest))
+        out[name]["updates_per_s"] = n / out[name]["s"]
+    edits = getattr(graph._slot, "_edits", None)
+    out["edits_after"] = None if edits is None else len(edits)
+    timed("gc_collect", gc.collect)
+    timed("copy_graph", lambda: cs.copy_graph(graph))
+    timed("transpose_graph", lambda: transpose_graph(graph))
+    arrays, meta = graph.state_dict()
+    timed("from_state", lambda: DynamicGraph.from_state(meta, arrays))
+    return out
+
+
 def main() -> None:
-    if len(sys.argv) > 2 and sys.argv[1] == "--child":
-        print(json.dumps(child(Path(sys.argv[2]).resolve())), flush=True)
+    if len(sys.argv) > 2 and sys.argv[1] in ("--child", "--graph-child"):
+        run = child if sys.argv[1] == "--child" else graph_child
+        print(json.dumps(run(Path(sys.argv[2]).resolve())), flush=True)
         return
-    trees = sys.argv[1:]
+    graph = sys.argv[1:2] == ["--graph"]
+    trees = sys.argv[2:] if graph else sys.argv[1:]
     if not trees:
         raise SystemExit(__doc__)
+    out_path = OUT.with_name("chip_ab_graph.jsonl") if graph else OUT
     OUT.parent.mkdir(parents=True, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    with OUT.open("w") as f:
+    with out_path.open("w") as f:
         f.write(json.dumps({"nvidia_smi": smi, "trees": trees}) + "\n")
         for tree in trees:
-            run = subprocess.run([sys.executable, __file__, "--child", tree], capture_output=True, text=True)
+            run = subprocess.run([sys.executable, __file__, "--graph-child" if graph else "--child", tree],
+                                 capture_output=True, text=True)
             if run.returncode:
                 sys.stderr.write(run.stderr[-4000:])
                 raise SystemExit(f"{tree}: exit {run.returncode}")

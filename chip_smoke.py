@@ -206,6 +206,32 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                forward over the same tokens (within 5e-2 of the largest
                |logit|), a batch-4 32k decode, ``lm_serve``, and 2 layers at
                full width in float32 on the card against the CPU (1e-4).
+               ``main_qwen72b``: qwen2-72b at its published widths cut to 8
+               layers, bf16: prefill 4 x 4096 through K5 (64/8 heads, D =
+               128) and 8 decode steps (K5 one launch a layer a call), one
+               profiled prefill and decode step; the same 8 steps
+               teacher-forced under an emulated (1, 4) ``("data",
+               "model")`` mesh, where every decode attention is
+               ``dlse_decode_attention`` over the cache split along its
+               sequence (K5 launches none; the blocks are views of the
+               cache), and on the plain path, each picking the kernel
+               path's token at least 0.9 of the time; a ``decode_32k``
+               run at batch 16 (17.2 GB of cache from the generator) on K5
+               and on the dlse path; and 2 layers in float32, TF32 off,
+               where the K5 path's and the dlse path's logits are each
+               within 1e-4 of the plain path's largest |logit|.  The dlse
+               step times are the cost of emulating the mesh on one card.
+               ``main_arctic``: arctic-480b at its published widths cut to
+               2 layers (55.4 GB of bf16 weights): prefill 4 x 4096 through
+               K5 (56/8 heads; expert capacity 320) and 8 decode steps, the
+               dropped shares, layer 0's routing on the card against the
+               CPU, the plain path and the dlse path with the routes
+               forced (top-1 >= 0.9), then 8 decode steps at batch 8 (the
+               capacity floor: one slot an expert) and their dropped share.
+               ``mla_dlse``: minicpm3-4b at full widths, 2 layers, float32,
+               the decode under the (1, 4) mesh
+               (``dlse_mla_decode_attention``) against the port's own MLA
+               decode within 1e-4 of the largest |logit| (a check only).
                ``main_mind``: MIND's ``serve_p99`` on the card against the
                CPU (rtol 1e-5), then ``serve_p99``, ``serve_bulk`` and
                ``retrieval_cand`` timed, and ``mind_serve``.
@@ -251,9 +277,10 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                exit reaches) and its time on an L1-sized filter row;
                ``diff_lookup`` on the J and Det stores;
                ``flash_attention`` on the first prefill and decode call of
-               ``main_lm``, ``main_lm_long``, ``main_moe`` and
-               ``main_moe_long``, whose operands are kept by running those
-               calls again after the timed run, and on
+               ``main_lm``, ``main_lm_long``, ``main_moe``,
+               ``main_moe_long``, ``main_qwen72b`` (4 x 64/8 x 4096, D =
+               128) and ``main_arctic`` (4 x 56/8 x 4096), whose operands
+               are kept by running those calls again after the timed run, and on
                random bf16 operands at head dims 128 (qwen2-moe's 16/16
                heads at 8 x 4096 and a 32 x 32,753-key cache view;
                qwen2-72b's 64/8 at 1 x 4096) and 16 (the smoke config's
@@ -965,14 +992,14 @@ def sparse_mm_yardstick(states, nbr, w, carry, kernel_out):
 # --------------------------------------------------------------------------- engine phases
 def copy_graph(graph):
     """An independent copy of a host ``DynamicGraph`` (arrays copied, the
-    slot dictionary shallow-copied: its keys and values are immutable),
-    far cheaper than rebuilding one at cit-Patents size."""
+    slot index's built arrays shared: they are never written), far cheaper
+    than rebuilding one at cit-Patents size."""
     import copy
 
     out = copy.copy(graph)
     for name in ("src", "dst", "weight", "label", "valid", "out_degree", "in_degree"):
         setattr(out, name, getattr(graph, name).copy())
-    out._slot = dict(graph._slot)
+    out._slot = graph._slot.copy()
     out._free = list(graph._free)
     return out
 
@@ -3545,15 +3572,15 @@ def k5_calls(cfg, calls: int) -> int:
 
 def lm_prefill_decode_phase(cfg, params, *, batch: int, prompt: int, steps: int, tag: str,
                             device, capture: FlashCapture | None = None, tally=None,
-                            compare: bool = True) -> tuple[dict, dict]:
+                            compare: bool = True, profile: bool = True) -> tuple[dict, dict]:
     """``make_prefill`` on batch × prompt random tokens, then ``steps``
     greedy ``make_decode`` steps against a cache of prompt + steps
     positions (the prefill's cache copied in); K5's count zeroed just before
     and read just after, and it must equal layers × calls (none for MLA).
     ``tally`` (a :class:`MoeTap`) has its ``phase`` set to ``"prefill"``
     and ``"decode"`` around the two.  Then, with ``capture``, K5's operands
-    of the first prefill and decode step (:func:`capture_forms`), one
-    profiled prefill and decode step, and, with ``compare``, the plain path
+    of the first prefill and decode step (:func:`capture_forms`), with
+    ``profile`` one profiled prefill and decode step, and, with ``compare``, the plain path
     on the same inputs.  Returns the phase's fields and the run (tokens,
     greedy tokens, logits, the decode cache)."""
     import torch
@@ -3588,7 +3615,7 @@ def lm_prefill_decode_phase(cfg, params, *, batch: int, prompt: int, steps: int,
     for lg in [last, *logits]:
         if tuple(lg.shape) != (batch, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"{tag}: logits of shape {tuple(lg.shape)} or not finite")
-    traced = lm_profile(cfg, params, tokens, cache, gen[-2], prompt + steps - 1, tag)
+    traced = lm_profile(cfg, params, tokens, cache, gen[-2], prompt + steps - 1, tag) if profile else None
     out = {"batch": batch, "prompt_len": prompt, "decode_steps": steps, "prefill_s": prefill_s,
            "prefill_tokens_per_s": batch * prompt / prefill_s,
            "decode_tokens_per_s": batch * steps / (sum(step_ms) / 1e3),
@@ -4180,6 +4207,260 @@ def main_mla(device) -> dict:
     out["float32_2_layers_card_vs_cpu"] = mla_f32_check(device)
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------- the model axis: qwen2-72b, arctic-480b
+# depth cut, widths the published ones (PERF.md §4)
+QWEN72B = dict(layers=8, batch=4, prompt=4096, steps=8)
+QWEN72B_LONG = dict(seq=32768, batch=16, steps=8)  # decode_32k: batch 128 -> 16, 17.2 GB of cache
+QWEN72B_F32 = dict(layers=2, batch=2, prompt=512, steps=4)
+ARCTIC = dict(layers=2, batch=4, prompt=4096, steps=8)
+ARCTIC_DECODE_BATCH = 8  # the reference's capacity floor: one slot an expert
+MLA_DLSE = dict(layers=2, batch=2, prompt=128, steps=4)
+DLSE_MESH = (1, 4)  # ("data", "model"), emulated on the one card
+
+
+def dlse_compare(cfg, params, cache, gen, logits_k, start: int, *, routes: bool = False) -> dict:
+    """The decode steps of a K5 run teacher-forced again (fed ``gen``,
+    from position ``start``) under an emulated :data:`DLSE_MESH` mesh, so
+    every decode attention is ``models/common.dlse_*`` over the cache split
+    along its sequence by ``cache_specs`` (the blocks views of ``cache``;
+    K5 must launch no time), against the K5 run's logits ``logits_k``.
+    With ``routes`` (an MoE) the K5 steps are re-run teacher-forced first,
+    recording every layer's routes, which the dlse run then replays
+    (:class:`RouteTape`).  The step times are the emulation's, not a speed
+    of sequence parallelism."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import mesh_rules as mr
+
+    mesh = make_mesh(DLSE_MESH, ("data", "model"), device=cache[0].device, emulate=True)
+    placed = [s.place(c) for s, c in zip(mr.shardings_for(tf.cache_specs(cfg), mesh), cache)]
+    views = all(b.untyped_storage().data_ptr() == c.untyped_storage().data_ptr()
+                for p, c in zip(placed, cache) for b in p.blocks.values())
+    if not views:
+        raise AssertionError(f"{cfg.name}: the cache's blocks on the emulated mesh are not views of it")
+    steps = len(logits_k)
+    tape = RouteTape(moe.topk_routing)
+    with patched(moe, "topk_routing", tape):
+        ref_logits = logits_k
+        if routes:
+            tape.mode = "record"
+            ref_logits, _ = lm_decode(cfg, params, cache, gen[0], start, steps, feed=gen[:steps])
+            tape.mode = "replay"
+        n0 = K5.LAUNCHES
+        with cm.activation_mesh(mesh):
+            logits_d, step_ms = lm_decode(cfg, params, cache, gen[0], start, steps, feed=gen[:steps])
+        launched = K5.LAUNCHES - n0
+    if launched:
+        raise AssertionError(f"{cfg.name}: the dlse decode launched flash_attention {launched} times")
+    if not all(bool(torch.isfinite(lg).all()) for lg in logits_d):
+        raise AssertionError(f"{cfg.name}: the dlse decode's logits are not finite")
+    out = logit_agreement(gen, None, ref_logits, None, logits_d)
+    out.update({"mesh": dict(zip(("data", "model"), DLSE_MESH)), "emulated": True, "cache_blocks_are_views": True,
+                "dlse_decode_step_ms": step_ms, "dlse_decode_step_ms_p50": float(np.percentile(step_ms, 50)),
+                "what_the_times_are": "the cost of emulating the mesh on one card, not a speed of sequence "
+                                      "parallelism"})
+    if routes:
+        out["routing_calls"] = len(tape.idx)
+        out["kernel_rerun_bit_equal"] = all(bool((a == b).all()) for a, b in zip(ref_logits, logits_k))
+    return out
+
+
+def plain_decode(cfg, params, cache, gen, start: int, steps: int):
+    """The decode steps teacher-forced on the plain path (attention through
+    ``chunked_attention``, no mesh); K5 must launch no time."""
+    from repro_torch.kernels import flash_attn as K5
+
+    n0 = K5.LAUNCHES
+    _, logits = teacher_forced(cfg, params, None, cache, gen, steps, start, plain_attention)
+    if K5.LAUNCHES != n0:
+        raise AssertionError("the plain path launched flash_attention")
+    return logits
+
+
+def main_qwen72b(device, capture: FlashCapture) -> dict:
+    """qwen2-72b at its published widths with its depth cut to
+    ``QWEN72B["layers"]``, bf16, weights from a seeded generator:
+    ``make_prefill`` on 4 x 4096 through K5 (8 query heads a KV head at D =
+    128) and 8 decode steps, K5 one launch a layer a call; the plain path
+    teacher-forced beside it and the dlse path under an emulated (1, 4)
+    mesh (:func:`dlse_compare`), each at top-1 >= :data:`BF16_TOP1_FLOOR`;
+    a ``decode_32k``-shaped run at batch 16 on a cache from the generator
+    on K5 and on the dlse path; then :func:`qwen72b_f32_check`."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("qwen2-72b")
+    c = QWEN72B
+    cfg = dataclasses.replace(arch.full(), num_layers=c["layers"])
+    params, init = init_lm(cfg, device)
+    lm_prefill(cfg, params, torch.zeros((1, 64), dtype=torch.long, device=device))  # warm-up
+    out = {"arch": arch.name, "dtype": dtype_name(cfg.dtype), "layers": cfg.num_layers,
+           "num_params": cfg.num_params(), "num_params_full": arch.full().num_params(), **init,
+           "reduced": {"num_layers": f"80 -> {c['layers']}", "prefill_32k.global_batch": f"32 -> {c['batch']}",
+                       "prefill_32k.seq_len": f"32768 -> {c['prompt']}",
+                       "decode_32k.global_batch": f"128 -> {QWEN72B_LONG['batch']}"}}
+    phase, run = lm_prefill_decode_phase(cfg, params, batch=c["batch"], prompt=c["prompt"], steps=c["steps"],
+                                         tag="qwen72b", device=device, capture=capture, compare=False)
+    out.update(phase)
+    # the dlse path first, on the cache the kernel path wrote; the plain
+    # path's prefill then rewrites it
+    out["vs_dlse"] = dlse_compare(cfg, params, run["cache"], run["gen"], run["logits"], c["prompt"])
+    out["vs_plain"] = lm_compare(cfg, params, run["tokens"], run["cache"], run["gen"], run["logits"], run["last"],
+                                 c["prompt"])
+    del run
+    for what in ("vs_plain", "vs_dlse"):
+        agree = out[what]["teacher_forced_top1_agreement"]
+        if not agree >= BF16_TOP1_FLOOR:
+            raise AssertionError(f"main_qwen72b: the {what[3:]} path agrees with the kernel path's tokens "
+                                 f"{agree} of the time")
+    torch.cuda.empty_cache()
+    s = QWEN72B_LONG
+    long, lrun = long_decode(cfg, params, **s, seed=SEED + 11, device=device)
+    lgen = [lrun["feed"]] + [torch.argmax(lg, dim=-1) for lg in lrun["logits"]]
+    long["vs_dlse"] = dlse_compare(cfg, params, lrun["cache"], lgen, lrun["logits"], s["seq"] - s["steps"])
+    long["launches_expected"] = f"{cfg.num_layers} layers x {s['steps']} calls"
+    out["decode_32k"] = long
+    del lrun, params
+    torch.cuda.empty_cache()
+    out["float32"] = qwen72b_f32_check(device)
+    return out
+
+
+def qwen72b_f32_check(device) -> dict:
+    """qwen2-72b at full width, ``QWEN72B_F32["layers"]`` layers, float32,
+    TF32 off: a prefill and greedy decode steps on the kernel path, then
+    the decode steps teacher-forced on the plain path and on the dlse path
+    (:func:`dlse_compare`); the K5 path's logits (prefill and decode) and
+    the dlse path's decode logits each within :data:`F32_LOGIT_REL_TOL` of
+    the plain path's largest |logit|."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = QWEN72B_F32
+    cfg = dataclasses.replace(get_arch("qwen2-72b").full(), num_layers=c["layers"], dtype=torch.float32)
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED + 12), device=device)
+    phase, run = lm_prefill_decode_phase(cfg, params, batch=c["batch"], prompt=c["prompt"], steps=c["steps"],
+                                         tag="qwen72b_f32", device=device, compare=False, profile=False)
+    # on the cache the kernel path wrote: the plain decode, the dlse decode
+    # against it, then the plain path from the prefill on
+    plain = plain_decode(cfg, params, run["cache"], run["gen"], c["prompt"], c["steps"])
+    dlse = dlse_compare(cfg, params, run["cache"], run["gen"], plain, c["prompt"])
+    vs_plain = lm_compare(cfg, params, run["tokens"], run["cache"], run["gen"], run["logits"], run["last"],
+                          c["prompt"])
+    out = {"layers": c["layers"], "dtype": "float32", "allow_tf32": False, "batch": c["batch"],
+           "prompt_len": c["prompt"], "decode_steps": c["steps"], "launches": phase["launches"],
+           "rel_tolerance": F32_LOGIT_REL_TOL, "k5_vs_plain": vs_plain, "dlse_vs_plain": dlse}
+    for what, rel in (("k5", vs_plain["logits_rel_diff"]), ("dlse", dlse["logits_rel_diff"])):
+        if not rel <= F32_LOGIT_REL_TOL:
+            raise AssertionError(f"main_qwen72b float32: the {what} path's logits differ from the plain path's "
+                                 f"by {rel} of the largest")
+    del run, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def main_arctic(device, capture: FlashCapture) -> dict:
+    """arctic-480b at its published widths with its depth cut to
+    ``ARCTIC["layers"]``, bf16: ``make_prefill`` on 4 x 4096 through K5 (7
+    query heads a KV head at D = 128; at 16,384 tokens the expert capacity
+    is 320) and 8 decode steps, the dropped share of each, layer 0's routing
+    on the card against the CPU, the plain path teacher-forced with forced
+    routes at top-1 >= :data:`BF16_TOP1_FLOOR` (as ``main_moe``), the dlse
+    path under an emulated (1, 4) mesh with forced routes likewise; then 8
+    decode steps at batch :data:`ARCTIC_DECODE_BATCH` on a cache from the
+    generator, where the reference's capacity floor leaves one slot an
+    expert, and their dropped share."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("arctic-480b")
+    c = ARCTIC
+    cfg = dataclasses.replace(arch.full(), num_layers=c["layers"])
+    params, init = init_lm(cfg, device)
+    lm_prefill(cfg, params, torch.zeros((1, 64), dtype=torch.long, device=device))  # warm-up
+    out = {"arch": arch.name, "dtype": dtype_name(cfg.dtype), "layers": cfg.num_layers,
+           "num_params": cfg.num_params(), "num_params_full": arch.full().num_params(),
+           "num_active_params": cfg.num_active_params(), **init,
+           "reduced": {"num_layers": f"35 -> {c['layers']}", "prefill_32k.global_batch": f"32 -> {c['batch']}",
+                       "prefill_32k.seq_len": f"32768 -> {c['prompt']}",
+                       "decode_32k": f"batch 128 -> {ARCTIC_DECODE_BATCH} at {c['prompt'] + c['steps']} positions"}}
+    tap = MoeTap()
+    with tap.installed():
+        phase, run = lm_prefill_decode_phase(cfg, params, batch=c["batch"], prompt=c["prompt"], steps=c["steps"],
+                                             tag="arctic", device=device, capture=capture, tally=tap,
+                                             compare=False)
+    out.update(phase)
+    out["dispatch_dropped"] = tap.dropped()
+    t = c["batch"] * c["prompt"]
+    out["routing_card_vs_cpu"] = {"prefill_layer0": routing_check(cfg, tap.logits[t]),
+                                  "decode_layer0": routing_check(cfg, tap.logits[c["batch"]])}
+    # the dlse path first, on the cache the kernel path wrote
+    out["vs_dlse"] = dlse_compare(cfg, params, run["cache"], run["gen"], run["logits"], c["prompt"], routes=True)
+    out["vs_plain"] = lm_compare(cfg, params, run["tokens"], run["cache"], run["gen"], run["logits"], run["last"],
+                                 c["prompt"], routes=True)
+    del run
+    for what, agree in (("plain", out["vs_plain"]["routes_forced"]["teacher_forced_top1_agreement"]),
+                        ("dlse", out["vs_dlse"]["teacher_forced_top1_agreement"])):
+        if not agree >= BF16_TOP1_FLOOR:
+            raise AssertionError(f"main_arctic: with the routes forced, the {what} path agrees with the kernel "
+                                 f"path's tokens {agree} of the time")
+    torch.cuda.empty_cache()
+    tap8 = MoeTap()
+    with tap8.installed():
+        b8, brun = long_decode(cfg, params, seq=c["prompt"] + c["steps"], batch=ARCTIC_DECODE_BATCH,
+                               steps=c["steps"], seed=SEED + 13, device=device, tally=tap8)
+    b8["dispatch_dropped"] = tap8.dropped()
+    b8["capacity"] = max(1, int(cfg.capacity_factor * ARCTIC_DECODE_BATCH * cfg.top_k / cfg.num_experts))
+    b8["launches_expected"] = f"{cfg.num_layers} layers x {c['steps']} calls"
+    out["decode_batch8"] = b8
+    out["decode_weight_read_bound_ms"] = init["weights_bytes"] / HBM_BYTES_PER_S * 1e3
+    del brun, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_dlse(device) -> dict:
+    """minicpm3-4b at full width, ``MLA_DLSE["layers"]`` layers, float32,
+    TF32 off, a short cache: a prefill and greedy decode steps on the
+    port's own MLA decode, then the steps teacher-forced under an emulated
+    (1, 4) mesh (``dlse_mla_decode_attention``: each shard expands only its
+    own block of latents), within :data:`F32_LOGIT_REL_TOL` of the largest
+    |logit|.  A check, not timed."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = MLA_DLSE
+    cfg = dataclasses.replace(get_arch("minicpm3-4b").full(), num_layers=c["layers"], dtype=torch.float32)
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED + 14), device=device)
+    phase, run = lm_prefill_decode_phase(cfg, params, batch=c["batch"], prompt=c["prompt"], steps=c["steps"],
+                                         tag="mla_dlse", device=device, compare=False, profile=False)
+    dlse = dlse_compare(cfg, params, run["cache"], run["gen"], run["logits"], c["prompt"])
+    del dlse["dlse_decode_step_ms"], dlse["dlse_decode_step_ms_p50"], dlse["what_the_times_are"]
+    if not dlse["logits_rel_diff"] <= F32_LOGIT_REL_TOL:
+        raise AssertionError(f"mla_dlse: the dlse path's logits differ from the MLA decode's by "
+                             f"{dlse['logits_rel_diff']} of the largest")
+    del run, params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": c["layers"], "dtype": "float32", "allow_tf32": False,
+            "batch": c["batch"], "prompt_len": c["prompt"], "decode_steps": c["steps"],
+            "launches": phase["launches"], "rel_tolerance": F32_LOGIT_REL_TOL, "vs_mla_decode": dlse}
 
 
 def mind_inputs(cfg, batch: int, candidates: int, rng, device, *, slab: bool = False):
@@ -5225,6 +5506,12 @@ def main() -> None:
     emit("main_moe_long", **moe_long_out)
     mla_out = main_mla(dev)
     emit("main_mla", **mla_out)
+    qwen72b_capture, arctic_capture = FlashCapture(K5.flash_attention), FlashCapture(K5.flash_attention)
+    qwen72b_out = main_qwen72b(dev, qwen72b_capture)
+    emit("main_qwen72b", **qwen72b_out)
+    arctic_out = main_arctic(dev, arctic_capture)
+    emit("main_arctic", **arctic_out)
+    emit("mla_dlse", **mla_dlse(dev))
     emit("main_mind", **main_mind(dev))
     emit("main_mind_train", **main_mind_train(dev))
     k5_grad_out = k5_grad(dev)
@@ -5237,8 +5524,12 @@ def main() -> None:
              "decode_f32": flash_real(f32_capture.calls["decode"]),
              "moe_prefill": flash_real(moe_capture.calls["prefill"]),
              "moe_decode": flash_real(moe_capture.calls["decode"]),
-             "moe_decode_32k": flash_real(moe_long_capture.calls["decode"])}
-    del lm_capture, long_capture, f32_capture, moe_capture, moe_long_capture
+             "moe_decode_32k": flash_real(moe_long_capture.calls["decode"]),
+             "qwen72b_prefill": flash_real(qwen72b_capture.calls["prefill"]),
+             "qwen72b_decode": flash_real(qwen72b_capture.calls["decode"]),
+             "arctic_prefill": flash_real(arctic_capture.calls["prefill"]),
+             "arctic_decode": flash_real(arctic_capture.calls["decode"])}
+    del lm_capture, long_capture, f32_capture, moe_capture, moe_long_capture, qwen72b_capture, arctic_capture
     torch.cuda.empty_cache()
     flash.update(flash_rows(dev))
     real["bloom_query"] = bloom_real(*real.pop("bloom_filter"), dev)
@@ -5274,13 +5565,20 @@ def main() -> None:
     # K5 over the LM runs, each counted from 0: prefill + decode, lm_serve,
     # the 32k cell, float32; qwen2-moe's prefill + decode, lm_serve and 32k
     # decode; minicpm3's (MLA: none); llama's timed train steps (forward and
-    # remat recompute) and the 2-layer card-vs-CPU gradients
+    # remat recompute) and the 2-layer card-vs-CPU gradients; qwen2-72b's
+    # prefill + decode, 32k decode and float32 run, arctic-480b's prefill +
+    # decode and batch-8 decode (their dlse decodes launch none)
     lm_launches = {"lm_prefill_and_decode": lm_out["launches"], "lm_serve": lm_out["lm_serve"]["launches"],
                    "lm_long": long_out["launches"], "lm_f32": f32_out["launches"],
                    "moe_prefill_and_decode": moe_out["launches"], "moe_serve": moe_out["lm_serve"]["launches"],
                    "moe_long": moe_long_out["launches"], "mla_prefill_and_decode": mla_out["launches"],
                    "mla_long": mla_out["decode_32k"]["launches"], "mla_serve": mla_out["lm_serve"]["launches"],
                    "lm_train": lm_train_out["launches"],
+                   "qwen72b_prefill_and_decode": qwen72b_out["launches"],
+                   "qwen72b_decode_32k": qwen72b_out["decode_32k"]["launches"],
+                   "qwen72b_f32": qwen72b_out["float32"]["launches"],
+                   "arctic_prefill_and_decode": arctic_out["launches"],
+                   "arctic_decode_batch8": arctic_out["decode_batch8"]["launches"],
                    **{f"train_card_vs_cpu_{n}": lm_check[n]["launches"]
                       for n in ("llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b")}}
     k5 = flash["prefill"]

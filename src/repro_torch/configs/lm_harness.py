@@ -4,8 +4,11 @@
 Shapes (assigned): train_4k (train_step), prefill_32k (prefill), decode_32k
 (serve_step: 1 new token against a seq_len KV cache).  The reference's
 ``build_lm_cell`` lowers these on a mesh for its dry-run; the port runs the
-steps on one device, and the mesh-sharded cells wait for their slice
-(ROADMAP Queue 1 item 9(f)).
+steps on one device, and a decode step under ``models.common.
+activation_mesh`` of a mesh with a ``model`` axis splits its cache over
+that axis (the ``dlse`` attentions).  Splitting the products over cards
+(the reference's tensor and expert parallelism) is not ported (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations

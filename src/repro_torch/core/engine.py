@@ -1263,6 +1263,7 @@ class DiffIFE:
         join_rows: list[bool] | None = None,
         device=None,
     ) -> None:
+        mesh = None if mesh is None else mesh_lib.as_data_mesh(mesh)  # vertices over `data` alone
         self.device = resolve_device(device) if mesh is None else mesh_lib.mesh_device(mesh, device)
         self.mesh = mesh
         self.num_shards = 1 if mesh is None else mesh.size

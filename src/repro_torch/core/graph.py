@@ -19,7 +19,9 @@ reference produce: ELL rows fill in ascending live-slot order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Sequence
+import itertools
+from collections.abc import MutableMapping
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -102,6 +104,140 @@ class GraphSnapshot:
         return nbr, w, d
 
 
+class SlotIndex(MutableMapping):
+    """``(u, v, label) -> slot`` of the live edges: the reference's
+    ``DynamicGraph._slot`` dict, cheap to build from the edge arrays.
+
+    The edges it is built from stay as arrays, sorted by ``u * V + v`` on
+    the first lookup (a stable radix sort: a few seconds at 15 M edges,
+    where a dict of 15 M tuples took 17-21 s); later inserts and deletes go
+    to a dict of edits (``-1``: deleted), read first; a batch
+    (``DynamicGraph.apply_batch_resolved``) searches the sorted arrays for
+    all its keys at once (:meth:`base_slots`).  Once the edits pass
+    ``1 / FOLD_FRACTION`` of the sorted entries (and ``FOLD_MIN``), they
+    are folded in: the entries they replace are dropped and the live ones
+    merged into new sorted arrays (at a batch's end), so the dict stays
+    small on a long stream.  A key repeated in the arrays maps to its last
+    occurrence, as a dict built from them would.  Equality with any mapping
+    compares the items, so the index equals the reference's dict when it
+    holds the same keys and slots.
+    """
+
+    FOLD_FRACTION = 16
+    FOLD_MIN = 4096
+
+    def __init__(self, num_vertices: int, u, v, label, slots) -> None:
+        self._v = int(num_vertices)
+        # copies: the graph's own arrays change under later batches
+        self._cols = tuple(np.array(x, dtype=np.int64) for x in (u, v, label, slots))
+        self._sorted: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None
+        self._edits: dict[tuple[int, int, int], int] = {}
+
+    def copy(self) -> "SlotIndex":
+        """An independent index: the sorted arrays built once here and
+        shared (never written), the edits copied."""
+        self._base()
+        out = SlotIndex.__new__(SlotIndex)
+        out._v, out._cols, out._sorted, out._edits = self._v, None, self._sorted, dict(self._edits)
+        return out
+
+    def _base(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(pair keys ascending, labels, slots); equal pairs in array order."""
+        if self._sorted is None:
+            u, v, lbl, slots = self._cols
+            keys, order = torch.sort(torch.from_numpy(u * self._v + v), stable=True)
+            order = order.numpy()
+            self._sorted, self._cols = (keys.numpy(), lbl[order], slots[order]), None
+        return self._sorted
+
+    def _lookup(self, key) -> int:
+        """The key's slot, or -1."""
+        i = self._edits.get(key)
+        return int(self.base_slots(np.array([key], np.int64))[0]) if i is None else i
+
+    def _matches(self, keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(row of ``keys`` [n, 3], position in the sorted arrays) of every
+        sorted entry equal to a key, a key's entries in ascending order."""
+        keys_s, labels, _ = self._base()
+        u, v, lbl = (keys[:, j] for j in range(3))
+        pair = u * self._v + v
+        order = np.argsort(pair)  # ascending queries keep the searches' reads near each other
+        lo, hi = np.empty_like(pair), np.empty_like(pair)
+        lo[order], hi[order] = keys_s.searchsorted(pair[order], "left"), keys_s.searchsorted(pair[order], "right")
+        count = np.where((v >= 0) & (v < self._v), hi - lo, 0)  # else u * V + v names another pair
+        at = np.repeat(lo - np.cumsum(count) + count, count) + np.arange(int(count.sum()))
+        who = np.repeat(np.arange(keys.shape[0]), count)
+        hit = labels[at] == lbl[who]
+        return who[hit], at[hit]
+
+    def base_slots(self, keys: np.ndarray) -> np.ndarray:
+        """Each ``[n, 3]`` int64 key's slot in the sorted arrays alone (the
+        edits not read), ``-1`` where absent: one vectorised search for a
+        batch."""
+        slots = self._base()[2]
+        last = np.full(keys.shape[0], -1, np.int64)
+        who, at = self._matches(keys)
+        np.maximum.at(last, who, at)  # the last occurrence wins
+        return np.where(last >= 0, slots[np.maximum(last, 0)] if slots.size else -1, -1)
+
+    def maybe_fold(self) -> None:
+        """Fold the edits in once they pass the threshold."""
+        if len(self._edits) > max(self.FOLD_MIN, self._base()[0].shape[0] // self.FOLD_FRACTION):
+            self._fold()
+
+    def _fold(self) -> None:
+        """Merge the edits into new sorted arrays.  Every base entry of an
+        edited key goes (a repeat included); the live edits are inserted at
+        their pair; keys whose v lies outside [0, V) stay edits."""
+        keys, labels, slots = self._base()
+        n = len(self._edits)
+        ek = np.fromiter(itertools.chain.from_iterable(self._edits), np.int64, 3 * n).reshape(-1, 3)
+        es = np.fromiter(self._edits.values(), np.int64, n)
+        keep = np.ones(keys.shape[0], bool)
+        keep[self._matches(ek)[1]] = False
+        inside = (ek[:, 1] >= 0) & (ek[:, 1] < self._v)
+        e = np.stack([ek[:, 0] * self._v + ek[:, 1], ek[:, 2], es], axis=1)[inside]
+        add = e[e[:, 2] >= 0]
+        add = add[np.argsort(add[:, 0], kind="stable")]
+        kept = keys[keep]
+        pos = kept.searchsorted(add[:, 0], "right")
+        self._sorted = (np.insert(kept, pos, add[:, 0]), np.insert(labels[keep], pos, add[:, 1]),
+                        np.insert(slots[keep], pos, add[:, 2]))
+        self._edits = {k: i for k, i in self._edits.items() if not 0 <= k[1] < self._v}
+
+    def __contains__(self, key) -> bool:
+        return self._lookup(key) >= 0
+
+    def __getitem__(self, key) -> int:
+        i = self._lookup(key)
+        if i < 0:
+            raise KeyError(key)
+        return i
+
+    def __setitem__(self, key, slot: int) -> None:
+        self._edits[key] = int(slot)
+        self.maybe_fold()
+
+    def __delitem__(self, key) -> None:
+        if self._lookup(key) < 0:
+            raise KeyError(key)
+        self._edits[key] = -1
+        self.maybe_fold()
+
+    def __iter__(self) -> Iterator[tuple[int, int, int]]:
+        keys, labels, _ = self._base()
+        seen = set(self._edits)
+        for pair, lbl in zip(keys.tolist(), labels.tolist()):
+            key = (pair // self._v, pair % self._v, lbl)
+            if key not in seen:
+                seen.add(key)
+                yield key
+        yield from (k for k, i in self._edits.items() if i >= 0)
+
+    def __len__(self) -> int:
+        return sum(1 for _ in self)
+
+
 class DynamicGraph:
     """Host-side dynamic graph with slot-recycling edge storage."""
 
@@ -135,9 +271,7 @@ class DynamicGraph:
         ):
             raise IndexError("edge endpoint outside [0, num_vertices)")
         # a repeated (u, v, label) keeps its LAST slot, as sequential inserts would
-        self._slot: dict[tuple[int, int, int], int] = dict(
-            zip(zip(u.tolist(), v.tolist(), lbl.tolist()), range(n))
-        )
+        self._slot = SlotIndex(self.num_vertices, u, v, lbl, np.arange(n))
         self._free: list[int] = list(range(cap - 1, n - 1, -1))
         self.version = 0  # G_k
 
@@ -167,24 +301,28 @@ class DynamicGraph:
 
     @classmethod
     def from_state(cls, meta: dict, arrays: dict) -> "DynamicGraph":
-        g = cls(
-            int(meta["num_vertices"]),
-            [],
-            capacity=int(arrays["src"].shape[0]),
-            weighted=bool(meta["weighted"]),
-        )
-        for name in ("src", "dst", "weight", "label", "valid",
-                     "out_degree", "in_degree"):
-            getattr(g, name)[:] = arrays[name]
-        g._free = [int(x) for x in arrays["free"]]
+        return cls.assemble(int(meta["num_vertices"]), arrays,
+                            np.asarray(arrays["free"], dtype=np.int64).tolist(),
+                            weighted=bool(meta["weighted"]), version=int(meta["version"]))
+
+    _ARRAYS = (("src", np.int32), ("dst", np.int32), ("weight", np.float32), ("label", np.int32),
+               ("valid", bool), ("out_degree", np.int32), ("in_degree", np.int32))
+
+    @classmethod
+    def assemble(cls, num_vertices: int, arrays: dict, free: list[int], *, weighted: bool = True,
+                 version: int = 0) -> "DynamicGraph":
+        """A graph from its edge-slot arrays (copied, in the graph's dtypes)
+        and its ordered free list, the slot index taken from the live slots;
+        no free list of the whole capacity is built first."""
+        g = cls.__new__(cls)
+        g.num_vertices = int(num_vertices)
+        g.weighted = bool(weighted)
+        for name, dtype in cls._ARRAYS:
+            setattr(g, name, np.array(arrays[name], dtype=dtype))
         live = np.nonzero(g.valid)[0]
-        g._slot = dict(
-            zip(
-                zip(g.src[live].tolist(), g.dst[live].tolist(), g.label[live].tolist()),
-                live.tolist(),
-            )
-        )
-        g.version = int(meta["version"])
+        g._slot = SlotIndex(g.num_vertices, g.src[live], g.dst[live], g.label[live], live)
+        g._free = free
+        g.version = int(version)
         return g
 
     # ------------------------------------------------------------------ api
@@ -221,35 +359,44 @@ class DynamicGraph:
         """Apply one δE batch, returning the slot-level effect of every
         accepted update (the device mirror the batched engine step scatters).
         """
+        updates = list(updates)
+        index = self._slot
+        # every key's slot in the sorted arrays at once; the edits of this
+        # batch are read first, and no fold runs until its end
+        keys = np.fromiter(itertools.chain.from_iterable(t[:3] for t in updates), np.int64, 3 * len(updates))
+        base = index.base_slots(keys.reshape(-1, 3)).tolist()
+        edits = index._edits
         ops: list[ResolvedOp] = []
-        for (u, v, lbl, w, sign) in updates:
+        for (u, v, lbl, w, sign), b in zip(updates, base):
             u, v, lbl = int(u), int(v), int(lbl)
             key = (u, v, lbl)
+            i = edits.get(key, b)
             if sign > 0:
-                if key in self._slot:
-                    i = self._slot[key]
+                if i >= 0:
                     self.weight[i] = float(w)
                     ops.append(("update", i, u, v, float(w)))
                 else:
                     if not self._free:
+                        index.maybe_fold()
                         raise MemoryError("edge capacity exhausted")
                     i = self._free.pop()
                     self.src[i], self.dst[i] = u, v
                     self.weight[i], self.label[i] = float(w), lbl
                     self.valid[i] = True
-                    self._slot[key] = i
+                    edits[key] = i
                     self.out_degree[u] += 1
                     self.in_degree[v] += 1
                     ops.append(("insert", i, u, v, float(w)))
             else:
-                if key not in self._slot:
+                if i < 0:
                     continue  # deleting a non-existent edge is a no-op
-                i = self._slot.pop(key)
+                edits[key] = -1
                 self.valid[i] = False
                 self._free.append(i)
                 self.out_degree[u] -= 1
                 self.in_degree[v] -= 1
                 ops.append(("delete", i, u, v, float(w)))
+        index.maybe_fold()
         self.version += 1
         return ops
 

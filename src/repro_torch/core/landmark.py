@@ -88,21 +88,17 @@ def transpose_graph(graph: DynamicGraph) -> DynamicGraph:
     plain tail range.
     """
     v, cap = graph.num_vertices, graph.capacity
-    out = DynamicGraph(v, [], capacity=cap, weighted=graph.weighted)
     live = np.nonzero(graph.valid)[0]
     n = int(live.size)
     src = graph.dst[live].astype(np.int32)  # transposed endpoints
     dst = graph.src[live].astype(np.int32)
-    out.src[:n] = src
-    out.dst[:n] = dst
-    out.weight[:n] = graph.weight[live]
-    out.label[:n] = graph.label[live]
-    out.valid[:n] = True
-    out.out_degree[:] = np.bincount(src, minlength=v)
-    out.in_degree[:] = np.bincount(dst, minlength=v)
-    out._slot = dict(zip(zip(src.tolist(), dst.tolist(), out.label[:n].tolist()), range(n)))
-    out._free = list(range(cap - 1, n - 1, -1))
-    return out
+    arrays = {name: np.zeros(cap, dtype=dtype) for name, dtype in DynamicGraph._ARRAYS[:5]}
+    arrays["src"][:n], arrays["dst"][:n] = src, dst
+    arrays["weight"][:n], arrays["label"][:n] = graph.weight[live], graph.label[live]
+    arrays["valid"][:n] = True
+    arrays["out_degree"] = np.bincount(src, minlength=v)
+    arrays["in_degree"] = np.bincount(dst, minlength=v)
+    return DynamicGraph.assemble(v, arrays, list(range(cap - 1, n - 1, -1)), weighted=graph.weighted)
 
 
 def select_landmarks(graph: DynamicGraph, num_landmarks: int) -> list[int]:

@@ -40,7 +40,8 @@ Gᵀ, and answer through pruned-scratch subqueries.
 format (``checkpoint/store.py``), planner state included: a session
 checkpointed by either package restores in the other, at any shard count.
 
-``mesh=`` (a :class:`~repro_torch.launch.mesh.DataMesh`, dense engine only)
+``mesh=`` (a :class:`~repro_torch.launch.mesh.DataMesh`, or a
+:class:`~repro_torch.launch.mesh.Mesh` whose ``data`` axis it takes; dense engine only)
 runs the vertex-sharded sweep: every slot-pool call acts on every shard's
 rows, and ``restore(mesh=)`` places a checkpoint taken at any shard count
 onto the current mesh.
@@ -63,7 +64,7 @@ from repro_torch.core.governor import GovernorConfig, MemoryGovernor
 from repro_torch.core.graph import DynamicGraph, product_graph
 from repro_torch.core.scratch import ScratchEngine
 from repro_torch.core.sparse_engine import SparseDiffIFE
-from repro_torch.launch.mesh import DataMesh, mesh_device
+from repro_torch.launch.mesh import DataMesh, as_data_mesh, mesh_device
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.probes import maintain_stats_dict, publish_session_metrics
 
@@ -303,7 +304,7 @@ class CQPSession:
         if governor is not None and budget_bytes is None:
             raise ValueError("a GovernorConfig needs budget_bytes to enforce")
         self.device = _session_device(mesh, device)
-        self.mesh = mesh
+        self.mesh = None if mesh is None else as_data_mesh(mesh)  # vertices over `data` alone
         self._governor: MemoryGovernor | None = None
         if budget_bytes is not None:
             gcfg = governor or GovernorConfig()

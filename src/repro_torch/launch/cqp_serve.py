@@ -27,8 +27,11 @@ pruned-scratch subqueries; the JSON report carries the planner's block.
 ``--mesh data --shards N`` runs the vertex-sharded sweep over N cards
 (``--mesh smoke``: one shard); ``--emulate-devices N`` places the N shards
 on the one ``--device`` instead — the counterpart of the reference's
-host-device flag, never chosen without it.  The JSON line then carries the
-per-device accounted bytes (their peak and the final split).
+host-device flag, never chosen without it.  ``--mesh production`` is the
+reference's 16 x 16 ``("data", "model")`` mesh over 256 cards: the graph's
+vertices split 16 ways over ``data`` and are replicated over ``model``.
+The JSON line then carries the per-device accounted bytes (their peak and
+the final split).
 
 ``--budget-bytes`` puts the stream under the memory governor (DESIGN.md
 §10): a global accounted-byte budget enforced online by escalating each
@@ -646,7 +649,8 @@ def main(argv=None) -> None:
         choices=("none", "smoke", "data", "production"),
         default="none",
         help="mesh to serve on: none (unsharded), smoke (one shard), data "
-        "(the vertex-sharded sweep over --shards cards) or production",
+        "(the vertex-sharded sweep over --shards cards) or production (16 x 16 "
+        "(data, model) cards: vertices over the 16 of data)",
     )
     ap.add_argument(
         "--shards", type=int, default=None,

@@ -3,7 +3,7 @@ batched scoring for MIND.
 
     PYTHONPATH=src python -m repro_torch.launch.model_serve --arch llama3.2-1b \
         --smoke --batch 4 --prompt-len 16 --gen 8            # on the GPU
-    ... --arch qwen2-moe-a2.7b | minicpm3-4b | mind          # the other ported archs
+    ... --arch qwen2-moe-a2.7b | minicpm3-4b | qwen2-72b | arctic-480b | mind
     ... --device cpu                                        # plain versions, CPU
 
 The port of ``repro/launch/model_serve.py``'s ``lm_serve``: the prompt goes

@@ -10,10 +10,12 @@ straggler detection.
 
 The port of ``repro/launch/train.py``'s ``main`` with its command line
 (``--smoke`` is accepted: ``main`` trains the smoke config, as the
-reference's does) and its printed lines, for ``llama3.2-1b``,
-``qwen2-moe-a2.7b``, ``minicpm3-4b``, ``mind`` and the four GNNs
-(``qwen2-72b`` and ``arctic-480b`` wait for the mesh path, ROADMAP Queue 1
-item 9(f)).  It adds ``--device`` (default: the CUDA device) and ``--json``
+reference's does) and its printed lines, for the five LMs
+(``llama3.2-1b``, ``qwen2-moe-a2.7b``, ``minicpm3-4b``, ``qwen2-72b``,
+``arctic-480b``), ``mind`` and the four GNNs (``diff-ife`` points to
+``examples/continuous_queries.py``, as the reference's does; training
+qwen2-72b or arctic-480b at full width needs their products split over
+cards, ROADMAP Queue 1).  It adds ``--device`` (default: the CUDA device) and ``--json``
 (a last line with every step's loss and wall seconds, the history and a
 digest of the final parameters).  Without ``--ckpt-dir`` a run checkpoints
 into a fresh directory of its own under the temporary directory and

@@ -1,12 +1,18 @@
 """Shared model primitives: norms, RoPE, activations, parameter creation and
 chunked (flash-style) attention in plain PyTorch.
 
-The port of ``repro/models/common.py`` for one device: parameters are plain
-dicts of tensors, created through :class:`ParamFactory` on a
-``torch.Generator``.  The reference's logical-axis specs, ``constrain`` and
-``activation_mesh`` only place arrays on a mesh, and the ``dlse_*``
-attentions run only under one, so they have no counterpart here (ROADMAP
-Queue 1 item 9(f)).  :func:`cross_entropy_loss` is the LM training loss.
+The port of ``repro/models/common.py``: parameters are plain dicts of
+tensors, created through :class:`ParamFactory` on a ``torch.Generator``;
+their logical-axis specs are written out by ``models/transformer.
+param_specs``.  :func:`activation_mesh` installs a mesh around model code,
+as the reference's does; under a mesh with a ``model`` axis the decode
+attentions are the distributed log-sum-exp ones (:func:`dlse_decode_attention`,
+:func:`dlse_mla_decode_attention`): the cache split over ``model`` along its
+sequence, each shard's softmax statistics combined by the mesh's plain
+collectives (``launch/mesh.pmax``/``psum``).  The reference's ``constrain``
+(an XLA sharding hint) has no counterpart: the port's products are not
+split over cards (ROADMAP Queue 1).  :func:`cross_entropy_loss` is the LM
+training loss.
 
 Each function promotes types as the reference does: a bfloat16 tensor times
 a float32 one computes in float32, and the reference's casts back to the
@@ -17,11 +23,36 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from repro_torch.core.engine import resolve_device
 
 Tensor = torch.Tensor
+
+# ------------------------------------------------------------ the active mesh
+# Model code is mesh-agnostic; a caller installs the mesh around it
+# (activation_mesh) and the decode attentions read it.
+_ACTIVATION_MESH: list = [None]
+
+
+@contextlib.contextmanager
+def activation_mesh(mesh):
+    """Install ``mesh`` (a ``launch/mesh.Mesh`` or ``DataMesh``) for model
+    code run inside; ``None`` clears it."""
+    prev = _ACTIVATION_MESH[0]
+    _ACTIVATION_MESH[0] = mesh
+    try:
+        yield
+    finally:
+        _ACTIVATION_MESH[0] = prev
+
+
+def model_mesh():
+    """The installed mesh when it has a ``model`` axis (the decode
+    attentions then split the cache over it), else ``None``."""
+    mesh = _ACTIVATION_MESH[0]
+    return mesh if mesh is not None and "model" in mesh.axis_names else None
 
 
 class ParamFactory:
@@ -166,6 +197,119 @@ def chunked_attention(
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.reshape(b, hq, bq, dv).to(q.dtype))
     return torch.cat(outs, dim=2)[:, :, :sq]
+
+
+def _dlse_blocks(mesh, q: Tensor, cache: tuple, seq_axis: int, valid: int):
+    """Per ``(pod, data)`` coordinate of ``mesh``: ``[(its q block, [(model
+    coordinate's device, its cache blocks trimmed to their valid keys), ...])]``.
+
+    ``q`` splits by batch over ``("pod", "data")`` (or ``"data"``), each
+    tensor of ``cache`` by batch and over ``"model"`` along ``seq_axis``, the
+    specs the reference's ``shard_map`` takes (``runtime/mesh_rules``); on an
+    emulated mesh the blocks are views.  Model shard ``k``'s block holds the
+    global keys ``k * S/tp ..``; keys at or past ``valid`` are cut off (a
+    masked key adds exactly zero to every sum), a block with none left is
+    dropped.  The cache is placed here on every call: on an emulated mesh
+    that costs views, over distinct cards it would copy the cache each
+    step (placing it once is ROADMAP Queue 1 work)."""
+    from repro_torch.runtime import mesh_rules as mr
+
+    batch = ("pod", "data") if "pod" in mesh.axis_names else "data"
+    q_spec = [None] * q.dim()
+    q_spec[0] = batch
+    c_spec = [None] * cache[0].dim()
+    c_spec[0], c_spec[seq_axis] = batch, "model"
+    qs = mr.NamedSharding(mesh, mr.P(*q_spec)).place(q)
+    cs = [mr.NamedSharding(mesh, mr.P(*c_spec)).place(c) for c in cache]
+    devs = mr.grid(mesh)
+    names = mesh.axis_names
+    m_axis = names.index("model")
+    out = []
+    for coord in np.ndindex(devs.shape):
+        if coord[m_axis]:
+            continue
+        shards = []
+        for k in range(devs.shape[m_axis]):
+            at = coord[:m_axis] + (k,) + coord[m_axis + 1 :]
+            blocks = [c.blocks[at] for c in cs]
+            s_loc = blocks[0].shape[seq_axis]
+            n = max(0, min(s_loc, valid - k * s_loc))
+            if n:
+                shards.append((devs[at], [b.narrow(seq_axis, 0, n) for b in blocks]))
+        out.append((qs.blocks[coord], shards))
+    return out
+
+
+def _dlse_combine(parts: list, devices, dtype, pv: str) -> Tensor:
+    """``parts``: each model shard's (scores [..., s], values) in float32
+    on its device, ``pv`` the einsum of probabilities and values.  One max
+    and two sums over the shards (the mesh's collectives), then ``acc / l``
+    in ``dtype`` on the first shard's device."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    m = mesh_lib.pmax([s.amax(dim=-1) for s, _ in parts], devices)
+    p = [torch.exp(s - mk[..., None]) for (s, _), mk in zip(parts, m)]
+    l = mesh_lib.psum([pk.sum(dim=-1) for pk in p], devices)
+    acc = mesh_lib.psum([torch.einsum(pv, pk, v) for pk, (_, v) in zip(p, parts)], devices)
+    return (acc[0] / torch.clamp(l[0], min=1e-30)[..., None]).to(dtype)
+
+
+def dlse_decode_attention(q: Tensor, ck: Tensor, cv: Tensor, kv_valid_len) -> Tensor:
+    """Distributed log-sum-exp decode attention under the installed mesh
+    (:func:`activation_mesh`; the reference's ``dlse_decode_attention``).
+
+    ``q`` [B, Hq, 1, D] (unscaled), ``ck``/``cv`` [B, Hkv, S, D] the
+    cache, split over ``model`` along S (and by batch over ``data``): each
+    model shard computes its scores ``q·k * D**-0.5`` in float32 on its own
+    block, at global key offset ``k * S/tp``, with keys at or past
+    ``kv_valid_len`` left out; one max and two sums over ``model`` combine
+    them.  Returns [B, Hq, 1, D] in q's dtype on q's device."""
+    mesh = model_mesh()
+    b, hq, _, d = q.shape
+    hkv = ck.shape[1]
+    group = hq // hkv
+    valid = int(kv_valid_len)
+    outs = []
+    for q_l, shards in _dlse_blocks(mesh, q, (ck, cv), 2, valid):
+        parts, devices = [], []
+        for dev, (k_l, v_l) in shards:
+            qh = q_l.to(dev).reshape(q_l.shape[0], hkv, group, d).float()
+            scores = torch.einsum("bngd,bnsd->bngs", qh, k_l.float()) * (d**-0.5)
+            parts.append((scores, v_l.float()))
+            devices.append(dev)
+        out = _dlse_combine(parts, devices, q.dtype, "bngs,bnsd->bngd")
+        outs.append(out.reshape(q_l.shape[0], hq, 1, d).to(q.device))
+    return torch.cat(outs, dim=0)
+
+
+def dlse_mla_decode_attention(q: Tensor, ckv: Tensor, krope: Tensor, wuk: Tensor, wuv: Tensor,
+                              kv_valid_len, *, nope_dim: int, v_dim: int) -> Tensor:
+    """MLA's distributed log-sum-exp decode (the reference's
+    ``dlse_mla_decode_attention``): each model shard expands only its own
+    block of the latent cache ``ckv`` [B, S, kv_rank] (and ``krope`` [B,
+    S, rope_dim]) through ``wuk``/``wuv``, and only the block's keys below
+    ``kv_valid_len`` (the reference expands them all and masks the rest,
+    which add exactly zero).  ``q`` [B, H, 1, nope + rope]; returns [B, H,
+    1, v_dim] in q's dtype on q's device."""
+    mesh = model_mesh()
+    b, h, _, qk = q.shape
+    rd = qk - nope_dim
+    valid = int(kv_valid_len)
+    outs = []
+    for q_l, shards in _dlse_blocks(mesh, q, (ckv, krope), 1, valid):
+        parts, devices = [], []
+        for dev, (c_l, r_l) in shards:
+            bl, s_loc = c_l.shape[0], c_l.shape[1]
+            k_nope = (c_l @ wuk.to(dev)).reshape(bl, s_loc, h, nope_dim)
+            v = (c_l @ wuv.to(dev)).reshape(bl, s_loc, h, v_dim).float()
+            k = torch.cat([k_nope, r_l[:, :, None].expand(bl, s_loc, h, rd)], dim=-1).float()
+            qf = q_l.to(dev)[:, :, 0].float()  # [B, H, qk]
+            scores = torch.einsum("bhd,bshd->bhs", qf, k) * (qk**-0.5)
+            parts.append((scores, v))
+            devices.append(dev)
+        out = _dlse_combine(parts, devices, q.dtype, "bhs,bshd->bhd")
+        outs.append(out[:, :, None, :].to(q.device))
+    return torch.cat(outs, dim=0)
 
 
 def cross_entropy_loss(logits: Tensor, labels: Tensor) -> Tensor:

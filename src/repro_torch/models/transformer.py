@@ -1,7 +1,7 @@
 """Decoder-only transformer family: GQA (with optional QKV bias), MLA, and
 the MoE FFN with shared experts or a dense residual.
 
-The port of ``repro/models/transformer.py`` for one device.  Parameters are
+The port of ``repro/models/transformer.py``.  Parameters are
 a dict of tensors with the reference's nesting and names, layers stacked
 ``[L, ...]``; :func:`forward` walks the layers in a Python loop, which
 computes what the reference's ``lax.scan`` computes.  The config keeps
@@ -14,8 +14,16 @@ each layer under ``torch.utils.checkpoint`` (non-reentrant), the
 reference's ``jax.checkpoint``: the backward pass recomputes the layer
 from its input.  ``configs/lm_harness.make_train_step`` takes the
 gradients and the AdamW step.
-The reference's mesh-only decode attentions (``dlse_*``) wait for the mesh
-slice (ROADMAP Queue 1 item 9(f)).
+
+Under a mesh with a ``model`` axis (``common.activation_mesh``), a decode
+step's attention is the reference's distributed log-sum-exp one, exactly
+where the reference branches: ``common.dlse_decode_attention`` for GQA,
+``common.dlse_mla_decode_attention`` for MLA, the cache split over
+``model`` along its sequence as :func:`cache_specs` lays it out (on an
+emulated mesh the blocks are views of the one cache, so the in-place
+insert below writes them).  :func:`param_specs` and :func:`cache_specs`
+give the reference's logical axes by the tree's names, for
+``runtime/mesh_rules``.
 
 Attention (:func:`_attention`) takes one of two forms, as the reference's
 single-device path does: a causal prefill with no cache (Sq == Sk, queries
@@ -176,6 +184,33 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None, devic
     return p
 
 
+# the reference's logical axes of each parameter, by its name in the tree
+_PARAM_AXES = {
+    "attn_norm": ("layers", "embed"), "mlp_norm": ("layers", "embed"),
+    "wq": ("layers", "embed", "heads"), "wk": ("layers", "embed", "heads"),
+    "wv": ("layers", "embed", "heads"), "wo": ("layers", "heads", "embed"),
+    "bq": ("layers", "heads"), "bk": ("layers", "heads"), "bv": ("layers", "heads"),
+    "wdq": ("layers", "embed", "mlp"), "q_norm": ("layers", "mlp"), "wuq": ("layers", "mlp", "heads"),
+    "wdkv": ("layers", "embed", "mlp"), "kv_norm": ("layers", "mlp"),
+    "wuk": ("layers", "mlp", "heads"), "wuv": ("layers", "mlp", "heads"),
+    "router": ("layers", "embed", "experts"),
+    "we_g": ("layers", "experts", "embed", "mlp"), "we_i": ("layers", "experts", "embed", "mlp"),
+    "we_o": ("layers", "experts", "mlp", "embed"),
+    "ws_g": ("layers", "embed", "mlp"), "ws_i": ("layers", "embed", "mlp"),
+    "ws_o": ("layers", "mlp", "embed"), "shared_gate": ("layers", "embed"),
+    "wg": ("layers", "embed", "mlp"), "wi": ("layers", "embed", "mlp"), "wo_mlp": ("layers", "mlp", "embed"),
+    "embed": ("vocab", "embed"), "final_norm": ("embed",), "lm_head": ("embed", "vocab"),
+}
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """Logical-axis tree matching :func:`init_params`' structure (no
+    allocation): the reference's ``param_specs``."""
+    shaped = init_params(cfg, None, device="meta")
+    return {"layers": {k: _PARAM_AXES[k] for k in shaped["layers"]},
+            **{k: _PARAM_AXES[k] for k in shaped if k != "layers"}}
+
+
 # ------------------------------------------------------------------ attention
 def _attention(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor, cache=None,
                kv_len: int | None = None):
@@ -219,7 +254,11 @@ def _attention(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor, ca
         pos = positions[:, 0]  # decode: one token per row
         _cache_insert_(ck, k, pos)
         _cache_insert_(cv, v, pos)
-        if dev == "cuda":
+        if cm.model_mesh() is not None:
+            # the cache split over the model axis along its sequence; only
+            # [B, Hq, D] softmax statistics cross between shards
+            out = cm.dlse_decode_attention(q, ck, cv, kv_len)
+        elif dev == "cuda":
             # K5 over the valid prefix (a strided view): the reference's
             # kv_valid_len = pos[0] + 1, one length for every row
             out = fa.flash_attention(qs, ck[:, :, :kv_len], cv[:, :, :kv_len], causal=False,
@@ -260,8 +299,13 @@ def _mla_attention(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor
         pos = positions[:, 0]
         _cache_insert_seq_(ckv_c, ckv_new, pos)
         _cache_insert_seq_(krope_c, krope_new, pos)
-        ckv, krope = ckv_c[:, :kv_len], krope_c[:, :kv_len]
         new_cache = (ckv_c, krope_c)
+        if cm.model_mesh() is not None:
+            # each model shard expands only its own block of the latents
+            out = cm.dlse_mla_decode_attention(q, ckv_c, krope_c, w["wuk"], w["wuv"], kv_len,
+                                               nope_dim=nd, v_dim=vd)
+            return out.transpose(1, 2).reshape(b, sq, hq * vd) @ w["wo"], new_cache
+        ckv, krope = ckv_c[:, :kv_len], krope_c[:, :kv_len]
     sk = ckv.shape[1]
     k_nope = (ckv @ w["wuk"]).reshape(b, sk, hq, nd).transpose(1, 2)
     v = (ckv @ w["wuv"]).reshape(b, sk, hq, vd).transpose(1, 2)
@@ -394,6 +438,16 @@ def _layer_without_cache(cfg: TransformerConfig, w: dict, x: Tensor, positions: 
     key or value outlives the layer."""
     x, aux, _ = _layer(cfg, w, x, positions)
     return x, aux
+
+
+def cache_specs(cfg: TransformerConfig):
+    """Logical axes of :func:`init_cache`'s two tensors (the reference's):
+    the sequence (``kv_seq``) over ``model`` and the batch over ``data``,
+    so a decode's attention reads only its own block of the cache."""
+    if cfg.attention == "gqa":
+        ax = ("layers", "batch", None, "kv_seq", None)
+        return (ax, ax)
+    return (("layers", "batch", "kv_seq", None), ("layers", "batch", "kv_seq", None))
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, device=None):

@@ -403,4 +403,6 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.mind", "repro_torch.models.gnn.equiformer_v2",
             "repro_torch.models.gnn.dimenet", "repro_torch.models.gnn.wigner",
             "repro_torch.configs.gnn_harness", "repro_torch.optim.adamw", "repro_torch.optim.compression",
-            "repro_torch.data.sampler", "repro_torch.launch.train"} <= imported
+            "repro_torch.data.sampler", "repro_torch.launch.train", "repro_torch.runtime.mesh_rules",
+            "repro_torch.runtime.elastic", "repro_torch.launch.mesh", "repro_torch.configs.qwen2_72b",
+            "repro_torch.configs.arctic_480b"} <= imported

@@ -108,6 +108,89 @@ def test_graph_ell_and_index_match_reference(seed, as_array):
     assert overflows > 0
 
 
+def _churn(seed: int, v: int = 12, batches: int = 8):
+    """Initial edges with repeated (u, v, label) keys and labelled twins of
+    one pair, then batches that delete, re-insert, re-weight and insert
+    keys drawn from a small pool, so keys repeat within and across batches
+    and freed slots are recycled."""
+    rng = np.random.default_rng(seed)
+    pool = [(int(a), int(b), int(lbl)) for a, b, lbl in rng.integers(0, [v, v, 3], (24, 3))]
+    initial = [(*pool[int(i)][:2], float(rng.integers(1, 9)), pool[int(i)][2])
+               for i in rng.integers(0, len(pool), 30)]
+    initial += [(0, 1, 2.0, 0), (0, 1, 3.0, 1), (0, 1, 4.0, 0)]  # a repeat keeps its last slot
+    log = []
+    for _ in range(batches):
+        batch = []
+        for _ in range(int(rng.integers(4, 12))):
+            a, b, lbl = pool[int(rng.integers(0, len(pool)))]
+            sign = 1 if rng.random() < 0.55 else -1
+            batch.append((a, b, lbl, float(rng.integers(1, 9)), sign))
+        log.append(batch)
+    return v, initial, log
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("built_by", ["init", "from_state", "transpose"])
+def test_slot_index_matches_the_references_dict(seed, built_by):
+    """The port's ``SlotIndex`` (sorted edge keys plus a dict of edits)
+    against the reference's tuple-keyed ``_slot`` dict on streams that
+    delete, re-insert and repeat keys: every batch's resolved ops, the slot
+    each insert recycles, ``state_dict`` and the index itself equal, for a
+    graph built from edges, restored by ``from_state`` (after half the
+    stream) and transposed by ``transpose_graph``."""
+    _check_slot_index(seed, built_by)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("built_by", ["init", "from_state", "transpose"])
+def test_slot_index_folds_its_edits_and_still_matches_the_references_dict(seed, built_by, monkeypatch):
+    """The same streams with the index folding its edits into the sorted
+    arrays as soon as they outnumber them: the ops, recycling, state and
+    the index still equal the reference's, and the dict of edits never
+    holds more than an eighth of the sorted arrays."""
+    monkeypatch.setattr(tg.SlotIndex, "FOLD_MIN", 0)
+    monkeypatch.setattr(tg.SlotIndex, "FOLD_FRACTION", 8)
+    folds = []
+    fold = tg.SlotIndex._fold
+    monkeypatch.setattr(tg.SlotIndex, "_fold", lambda self: (folds.append(len(self._edits)), fold(self)))
+    _check_slot_index(seed, built_by, bound_edits=True)
+    assert folds
+
+
+def _check_slot_index(seed, built_by, bound_edits=False):
+    from repro.core import landmark as rlm
+    from repro_torch.core import landmark as tlm
+
+    v, initial, log = _churn(seed)
+    ref = rg.DynamicGraph(v, initial, capacity=64)
+    port = tg.DynamicGraph(v, initial, capacity=64)
+    half = len(log) // 2
+    if built_by != "init":
+        for batch in log[:half]:
+            assert port.apply_batch_resolved(batch) == ref.apply_batch_resolved(batch)
+        if built_by == "from_state":
+            arrays, meta = ref.state_dict()
+            ref = rg.DynamicGraph.from_state(meta, arrays)
+            port = tg.DynamicGraph.from_state(meta, port.state_dict()[0])
+        else:
+            ref, port = rlm.transpose_graph(ref), tlm.transpose_graph(port)
+        log = [rlm.transpose_updates(b) for b in log[half:]] if built_by == "transpose" else log[half:]
+    assert isinstance(port._slot, tg.SlotIndex)
+    _same_graph(port, ref)
+    twin = port._slot.copy()  # chip_smoke's graph copies: independent edits
+    twin[(v, v, 0)] = 7
+    del twin[next(iter(port._slot))]
+    assert (v, v, 0) not in port._slot and dict(port._slot) == ref._slot
+    u0, v0, l0 = next(iter(port._slot))  # a key past V never aliases another pair
+    assert (u0 - 1, v0 + v, l0) not in port._slot and port._slot.get((u0 - 1, v0 + v, l0)) is None
+    for batch in log:
+        assert port.apply_batch_resolved(batch) == ref.apply_batch_resolved(batch)
+        _same_graph(port, ref)
+        assert sorted(port._slot) == sorted(ref._slot) and len(port._slot) == len(ref._slot)
+        if bound_edits:
+            assert len(port._slot._edits) <= port._slot._base()[0].shape[0] // 8
+
+
 def test_ell_index_overflow_names_the_same_vertex():
     edges = [(i, 7, 1.0) for i in range(7)] + [(i, 3, 1.0) for i in range(4, 7)]
     ref = rg.DynamicGraph(8, edges, capacity=32).snapshot()

@@ -1,9 +1,10 @@
 """Port parity: LM training (``models/transformer.loss_fn``,
 ``configs/lm_harness.make_train_step``, remat) and K5's backward pass.
 
-The reference's three ported LM smoke configs (``llama3.2-1b``,
-``qwen2-moe-a2.7b``, ``minicpm3-4b``: 2 layers, d=64, float32; GQA, the
-MoE FFN with the gated shared expert and QKV bias, MLA), weights drawn by
+The reference's five LM smoke configs (``llama3.2-1b``,
+``qwen2-moe-a2.7b``, ``minicpm3-4b``, ``qwen2-72b``, ``arctic-480b``: 2
+layers, d=64, float32; GQA, the MoE FFN with the gated shared expert and
+QKV bias, MLA, GQA with QKV bias, the MoE beside a dense residual), weights drawn by
 the reference's ``init_params`` and carried across, tokens and labels from
 ``data/synthetic.lm_batch`` (the same draws in both packages):
 
@@ -12,7 +13,8 @@ the reference's ``init_params`` and carried across, tokens and labels from
   its largest |value|;
 - three ``make_train_step`` steps against the reference's jitted step at
   ``grad_accum`` 1 and 2: losses within rtol 1e-5, gradient norms within
-  1e-4, each final leaf within 1e-4 of its largest |value|;
+  1e-4, each final leaf within 1e-4 of its largest |value| (but for the
+  elements below);
 - ``cfg.remat`` on and off giving the same loss and gradients bit for bit
   (the recomputation repeats the same float32 operations).
 
@@ -32,6 +34,18 @@ within the latter.  The rule reads
 the reference's state only; the test also counts the elements it frees,
 and at least one element of qwen2-moe at ``grad_accum`` 2 must be among
 them (the case above).
+
+The same amplification, a little further from eps, parts both packages'
+float32 steps from the truth: in qwen2-72b's bk (a leaf whose largest
+value is 8.8e-4, so 1e-4 of it is 8.8e-8) the reference's final values
+lie up to 1.23e-7 from the same three steps run in float64, and the
+port's up to 1.30e-7, at other elements.  So the three steps also run in
+float64 (:func:`_float64_steps`: the port's loss and gradients with
+float64 weights, the reference's AdamW written out in float64), and an
+element that parts from the reference by more than 1e-4 of its leaf's
+largest value is held within that much of the float64 value plus the
+reference's own largest float32 error in that leaf (capped at 1% of lr a
+step).  Only qwen2-72b needs this, and the test asserts it does.
 
 K5's :class:`~repro_torch.kernels.flash_attn.FlashAttention` on the CPU
 (where its forward is the plain version): its plain backward against
@@ -58,7 +72,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw_init
 from repro_torch.optim.adamw import tree_leaves
 
-ARCHS = ["llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b"]
+ARCHS = ["llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b", "qwen2-72b", "arctic-480b"]
 BATCH, SEQ = 4, 32
 LR, STEPS = 3e-4, 3
 # the reference's AdamW (repro/optim/adamw.py): b2 and eps; an element whose
@@ -125,6 +139,31 @@ def test_loss_and_gradients_match_the_references_value_and_grad(name):
         assert _leaf_rel(a, b) <= 1e-4, path
 
 
+def _float64_steps(cfg, params, grad_accum):
+    """The three steps again in float64 throughout: the port's loss and
+    gradients with float64 weights, then the reference's AdamW (clip 1.0,
+    b1 0.9, b2 0.95, eps 1e-8, weight decay 0.1) written out in float64.
+    The final leaves, the witness an element is held to where the
+    reference's own float32 step parts from it."""
+    from repro_torch.optim.adamw import tree_unflatten
+
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    p = [x.detach().double() for x in tree_leaves(params)]
+    m, v = [torch.zeros_like(x) for x in p], [torch.zeros_like(x) for x in p]
+    for step in range(STEPS):
+        _, (t, lab) = _batch(step, cfg.vocab_size)
+        tree, g = tree_unflatten(params, p), [torch.zeros_like(x) for x in p]
+        for tm, lm in zip(t.chunk(grad_accum), lab.chunk(grad_accum)):
+            _, gm = value_and_grad(lambda q: tf.loss_fn(cfg64, q, tm, lm), tree)
+            g = [a + b / grad_accum for a, b in zip(g, tree_leaves(gm))]
+        scale = min(1.0, 1.0 / max(float(torch.sqrt(sum((x * x).sum() for x in g))), 1e-9))
+        c1, c2 = 1.0 - 0.9 ** (step + 1), 1.0 - B2 ** (step + 1)
+        m = [0.9 * a + 0.1 * x * scale for a, x in zip(m, g)]
+        v = [B2 * a + (1 - B2) * (x * scale) ** 2 for a, x in zip(v, g)]
+        p = [x - LR * (a / c1 / (torch.sqrt(b / c2) + EPS) + 0.1 * x) for x, a, b in zip(p, m, v)]
+    return [x.numpy() for x in p]
+
+
 @pytest.mark.parametrize("grad_accum", [1, 2])
 @pytest.mark.parametrize("name", ARCHS)
 def test_three_train_steps_match_the_references_jitted_step(name, grad_accum):
@@ -148,15 +187,25 @@ def test_three_train_steps_match_the_references_jitted_step(name, grad_accum):
         for m, nu in zip(near_eps, jax.tree.leaves(ro.nu)):
             m |= np.sqrt(np.asarray(nu) / (1.0 - B2 ** (step + 1))) <= NEAR_EPS * EPS
     assert int(po.step) == int(ro.step) == STEPS
-    freed = 0
-    for path, a, b, m in zip(_paths(params), tree_leaves(pp), jax.tree.leaves(rp), near_eps):
-        diff, b = np.abs(a.numpy() - np.asarray(b)), np.asarray(b)
+    wit = _float64_steps(cfg, params, grad_accum)
+    freed = witnessed = 0
+    for path, a, b, m, w in zip(_paths(params), tree_leaves(pp), jax.tree.leaves(rp), near_eps, wit):
+        a, b = a.numpy(), np.asarray(b)
+        diff = np.abs(a - b)
         rel = 1e-4 * max(float(np.abs(b).max()), 1e-30)
-        assert float(diff[~m].max(initial=0.0)) <= rel, path
+        # the reference's own float32 error in this leaf, against the float64 witness
+        ref_err = min(float(np.abs(b - w).max()), 1e-2 * LR * STEPS)
+        off = ~m & (diff > rel)
+        assert float(np.abs(a - w)[off].max(initial=0.0)) <= ref_err + rel, path
         assert float(diff[m].max(initial=0.0)) <= max(rel, 1e-2 * LR * STEPS), path
         freed += int(m.sum())
+        witnessed += int(off.sum())
     if (name, grad_accum) == ("qwen2-moe-a2.7b", 2):
         assert freed > 0
+    if name == "qwen2-72b":
+        assert witnessed > 0
+    else:
+        assert witnessed == 0
 
 
 @pytest.mark.parametrize("name", ARCHS)

@@ -436,8 +436,8 @@ def test_meshes_and_elastic_resharding():
     with pytest.raises(ValueError, match="visible"):
         make_production_mesh()
     assert not make_data_mesh(1, device=CPU).emulated and two.emulated
-    built = elastic.build_mesh([CPU] * 4, data=2, emulate=True)
-    assert built.size == 2 and built.emulated
+    built = elastic.build_mesh([CPU] * 4, data=2, model=1, emulate=True)  # the reference's (data, model)
+    assert built.size == 2 and built.shape == {"data": 2, "model": 1} and built.emulated
     with pytest.raises(ValueError, match="emulate=True"):
         elastic.build_mesh([CPU] * 4, data=2)  # repeated devices are never emulated silently
     assert elastic.shrink_after_failure(two, {torch.device("cuda", 0)}).size == 2

@@ -7,12 +7,12 @@ from the same carried parameters and batch: the loss of every step within
 rtol 1e-5 (EquiformerV2 1e-4), and each leaf of the final parameters within
 1e-4 of its largest |value| (the LM and MIND steps: ``test_torch_lm_train.py``,
 ``test_torch_mind_train.py``).  The CLI on the CPU, for the four GNNs,
-``llama3.2-1b``, ``qwen2-moe-a2.7b``, ``minicpm3-4b`` and ``mind``: the
-reference's printed lines (those a straggler flag alone adds, which depend
-on the host's timing, are checked for their form and not counted); a fault
-drill with one restart whose final parameters equal the uninterrupted run's
-bit for bit; the archs waiting for the mesh path raising so; the CUDA
-device as the default.  A ``(params, AdamWState)`` checkpoint written by
+``llama3.2-1b``, ``qwen2-moe-a2.7b``, ``minicpm3-4b``, ``mind``,
+``qwen2-72b`` and ``arctic-480b``: the reference's printed lines (those a
+straggler flag alone adds, which depend on the host's timing, are checked
+for their form and not counted); a fault drill with one restart whose final
+parameters equal the uninterrupted run's bit for bit; ``diff-ife``, not
+ported yet, raising so; the CUDA device as the default.  A ``(params, AdamWState)`` checkpoint written by
 the reference restores into the port leaf-equal, and back, for a GNN and a
 transformer.
 """
@@ -32,7 +32,7 @@ from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.optim.adamw import tree_leaves
 
 ARCHS = ("pna", "gatedgcn", "dimenet", "equiformer-v2")
-LM_MIND = ("llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b", "mind")
+LM_MIND = ("llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b", "mind", "qwen2-72b", "arctic-480b")
 MODULE = {"pna": "pna", "gatedgcn": "gatedgcn", "dimenet": "dimenet", "equiformer-v2": "equiformer_v2"}
 
 
@@ -52,9 +52,11 @@ def test_get_arch_resolves_the_gnns_and_names_what_is_left():
         arch = get_arch(name)
         assert (arch.name, arch.family) == (name, "gnn")
     assert get_arch("equiformer_v2").name == "equiformer-v2"
-    for name in ("qwen2-72b", "arctic-480b", "diff-ife"):
-        with pytest.raises(KeyError, match=r"not ported yet \(ROADMAP Queue 1 item 9\(f\)"):
-            get_arch(name)
+    for name in ("qwen2-72b", "arctic-480b", "arctic_480b"):
+        arch = get_arch(name)
+        assert (arch.name, arch.family) == (name.replace("_", "-"), "lm")
+    with pytest.raises(KeyError, match=r"not ported yet \(ROADMAP Queue 1 item 9\(f3\)"):
+        get_arch("diff-ife")
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -197,11 +199,10 @@ def test_cli_runs_without_a_ckpt_dir_see_only_their_own_checkpoints(tmp_path, mo
 def test_cli_raises_for_what_is_not_ported_and_defaults_to_the_gpu(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="use examples/continuous_queries.py for diff-ife"):
         T.main(["--arch", "diff-ife"])
-    for name in ("qwen2-72b", "arctic-480b"):
-        with pytest.raises(SystemExit, match="9\\(f\\)"):
-            T.main(["--arch", name, "--device", "cpu"])
+    with pytest.raises(KeyError, match="9\\(f3\\)"):
+        get_arch("diff-ife")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("pna", "llama3.2-1b", "mind"):
+    for name in ("pna", "llama3.2-1b", "mind", "qwen2-72b", "arctic-480b"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.main(["--arch", name, "--steps", "1", "--ckpt-dir", str(tmp_path / name)])
 

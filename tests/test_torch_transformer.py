@@ -76,7 +76,7 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
 
 # ------------------------------------------------------------------ configs
 NUM_PARAMS = {"llama3.2-1b": 1_498_482_688, "qwen2-moe-a2.7b": 15_146_452_992,
-              "minicpm3-4b": 4_263_336_448}
+              "minicpm3-4b": 4_263_336_448, "qwen2-72b": 72_706_203_648, "arctic-480b": 476_850_275_328}
 
 
 @pytest.mark.parametrize("name", list(NUM_PARAMS))
@@ -96,7 +96,7 @@ def test_configs_match_the_reference(name):
     assert {k: (s.kind, s.meta) for k, s in arch.shapes.items()} == \
         {k: (s.kind, s.meta) for k, s in ref.shapes.items()}
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("qwen2-72b")
+        get_arch("diff-ife")
     with pytest.raises(KeyError, match="unknown"):
         get_arch("gpt-17")
 
@@ -328,7 +328,7 @@ def test_attention_takes_only_its_two_forms():
 
 
 # ------------------------------------------------------------------ serving
-@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2-moe-a2.7b", "minicpm3-4b"])
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_serve_loop_gives_the_references_greedy_tokens(name):
     """The reference's loop (``model_serve.py`` ``lm_serve``, prompt fed
     through decode steps, then greedy argmax) on the same weights and
@@ -362,6 +362,26 @@ def test_lm_serve_runs_the_cli_defaults_on_the_cpu(capsys):
     assert "served 4 seqs" in capsys.readouterr().out
     MS.main(["--arch", "llama3.2-1b", "--batch", "2", "--prompt-len", "3", "--gen", "2",
              "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", ["qwen2-72b", "arctic-480b"])
+def test_model_serve_cli_prints_the_references_line_for_the_big_configs(name, capsys, monkeypatch):
+    """``model_serve --arch`` on the smoke config prints the reference's
+    CLI's line (``served B seqs × G new tokens in ...``), naming the config
+    and the device; the serve-loop test above holds its greedy tokens to
+    the reference's on carried weights."""
+    import sys
+
+    from repro.launch import model_serve as ref_serve
+
+    monkeypatch.setattr(sys, "argv", ["model_serve", "--arch", name])
+    ref_serve.main()
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    MS.main(["--arch", name, "--device", "cpu"])
+    got = capsys.readouterr().out.strip().splitlines()[-1]
+    assert want.startswith("served 4 seqs × 8 new tokens in ")
+    assert got.split(" in ")[0] == want.split(" in ")[0]
+    assert got.endswith(f"{get_arch(name).smoke().name} on cpu)")
 
 
 # ---------------------------------------------------------------- on the card
