@@ -3,6 +3,7 @@ between source trees.
 
     python3 chip_ab.py TREE [TREE ...]
     python3 chip_ab.py --graph TREE [TREE ...]
+    python3 chip_ab.py --wrappers TREE [TREE ...]
 
 Each TREE is a checkout of this repository (``.`` for this one).  The trees
 run one after another, each in a fresh process on the one card, with their
@@ -21,6 +22,12 @@ one of the remaining 2**20 - 2**16 - 33 * 32 (``apply_batch_resolved``), a
 full collection, ``copy_graph``, ``transpose_graph`` and a ``state_dict``
 / ``from_state`` round trip, each in seconds; its lines go to
 ``build/chip_ab_graph.jsonl``.
+
+``--wrappers`` times kernel wrappers' calls, host work included: K5 at
+arctic-480b's decode (4 x 56 query heads over 8 kv heads, 4,097 keys, D 128,
+bf16) and a small K3 call (8 rows of 2,048 bits, 1,024 keys each), 1,000
+back-to-back calls a repetition and 5 repetitions, synced at each end; its
+lines go to ``build/chip_ab_wrappers.jsonl``.
 """
 
 from __future__ import annotations
@@ -154,16 +161,54 @@ def graph_child(tree: Path) -> dict:
     return out
 
 
+def wrappers_child(tree: Path) -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab.py needs a CUDA device")
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import flash_attn as K5
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((4, 56, 1, 128), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((4, 8, 4097, 128), generator=g, device=dev).bfloat16() for _ in range(2))
+    words = torch.randint(0, 2**31, (8, 64), generator=g, device=dev, dtype=torch.int32)
+    kv = torch.randint(0, 1 << 20, (8, 1024), generator=g, device=dev, dtype=torch.int32)
+    ki = torch.randint(0, 16, (8, 1024), generator=g, device=dev, dtype=torch.int32)
+    salt = torch.arange(8, dtype=torch.int32, device=dev)
+    calls = {"k5_arctic_decode": lambda: K5.flash_attention(q, k, v, causal=False),
+             "k3_small": lambda: K3.bloom_query(words, kv, ki, salt, num_hashes=4)}
+    out: dict = {"tree": str(tree)}
+    for name, call in calls.items():
+        for _ in range(50):
+            call()
+        torch.cuda.synchronize()
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                call()
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)  # seconds for 1,000 calls: ms a call
+        out[name] = {"ms_a_call": reps}
+    return out
+
+
+CHILDREN = {"--child": child, "--graph-child": graph_child, "--wrappers-child": wrappers_child}
+MODES = {"--graph": ("--graph-child", "chip_ab_graph.jsonl"), "--wrappers": ("--wrappers-child", "chip_ab_wrappers.jsonl")}
+
+
 def main() -> None:
-    if len(sys.argv) > 2 and sys.argv[1] in ("--child", "--graph-child"):
-        run = child if sys.argv[1] == "--child" else graph_child
-        print(json.dumps(run(Path(sys.argv[2]).resolve())), flush=True)
+    if len(sys.argv) > 2 and sys.argv[1] in CHILDREN:
+        print(json.dumps(CHILDREN[sys.argv[1]](Path(sys.argv[2]).resolve())), flush=True)
         return
-    graph = sys.argv[1:2] == ["--graph"]
-    trees = sys.argv[2:] if graph else sys.argv[1:]
+    mode = MODES.get(sys.argv[1]) if len(sys.argv) > 1 else None
+    trees = sys.argv[2:] if mode else sys.argv[1:]
     if not trees:
         raise SystemExit(__doc__)
-    out_path = OUT.with_name("chip_ab_graph.jsonl") if graph else OUT
+    child_flag, out_path = ("--child", OUT) if mode is None else (mode[0], OUT.with_name(mode[1]))
     OUT.parent.mkdir(parents=True, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -171,7 +216,7 @@ def main() -> None:
     with out_path.open("w") as f:
         f.write(json.dumps({"nvidia_smi": smi, "trees": trees}) + "\n")
         for tree in trees:
-            run = subprocess.run([sys.executable, __file__, "--graph-child" if graph else "--child", tree],
+            run = subprocess.run([sys.executable, __file__, child_flag, tree],
                                  capture_output=True, text=True)
             if run.returncode:
                 sys.stderr.write(run.stderr[-4000:])

@@ -104,6 +104,23 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                and pruned Bellman-Ford), pruned iterations and the work cut
                ``1 − work / (iters × Q × V)``, the index's bytes, peak
                device memory and K2's launches (the forward index rows).
+   ``main_diff_ife``  (after the graph phases) the ``diff-ife`` arch at the
+               production V = 1,048,576, E = 16,777,216, S = 8 and
+               ``max_iters`` 16, Q cut to ``DIFF_IFE_QUERIES`` (and
+               ``maintain_burst``'s 1,024 to Q/8): the cells' inputs
+               (``build_cell`` + ``materialize``: a uniform graph, distinct
+               sources), an initial sweep and one δE batch unsharded, on
+               ``maintain_q8k``'s layout over an emulated (2, 2) mesh and on
+               ``maintain_q8k_qpar``'s over an emulated (1, 4) one: answers,
+               store leaves and ``MaintainStats`` bit-equal across the
+               three, answers equal SCRATCH, each coordinate holding the
+               state and dirty bytes of the dry-run's ``per_device_bytes``
+               exactly as the layout passes them (the graph's held bytes
+               beside the declared); sweep walls, iterations, peak memory;
+               no kernel launches.
+   ``sweep_dryrun``  ``launch/sweep_dryrun``'s four cells (``ell``/``fused``
+               x 1 and 8 emulated shards, V 512) counted and timed: K1 or
+               K2 once a shard an iteration, the records printed.
    ``main_serve``  the serving tier at the same size:
                ``build_serving_session(engine="dense", backend="fused",
                batch_capacity=32)`` with Prob-Drop provisioned at p = 0 and
@@ -5363,6 +5380,185 @@ def train_drill_finish(handle: dict) -> dict:
             "pairs": pairs}
 
 
+# --------------------------------------------------------------------------- diff-ife and the dry-run
+# main_diff_ife's cut: Q queries of the production sizing's 8,192 (V, E, S
+# and max_iters uncut); maintain_burst's 1,024 are cut by the same factor
+DIFF_IFE_QUERIES = 64
+DIFF_IFE_UPDATES = 4096  # the δE batch: deletions, and as many edges re-pointed
+
+
+def _state_bytes(st) -> int:
+    return sum(x.numel() * x.element_size() for x in (*st.dstore, st.init, st.cur, st.repair_counts))
+
+
+def _same_state(got, want, stats, want_stats, what: str) -> None:
+    import torch
+
+    from repro_torch.core.engine import MaintainStats
+
+    for name, a, b in (("cur", got.cur, want.cur), ("repair_counts", got.repair_counts, want.repair_counts),
+                       *((f"dstore.{f}", getattr(got.dstore, f), getattr(want.dstore, f))
+                         for f in ("iters", "vals", "count"))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from the unsharded sweep's")
+    for f in MaintainStats._fields:
+        if not torch.equal(getattr(stats, f).cpu(), getattr(want_stats, f).cpu()):
+            raise AssertionError(f"{what}: MaintainStats.{f} differs from the unsharded sweep's")
+
+
+def _held_against_declared(cell, cfg, shape: str, args) -> dict:
+    """What each emulated coordinate holds of the real arguments, as the
+    layout passes them to the sweep (``diff_ife.lay_out`` /
+    ``held_bytes``), beside what the cell's shardings declare (the
+    dry-run's ``per_device_bytes``, argument by argument).  The state and
+    the dirty mask must be held as declared, exactly, at every coordinate;
+    the graph is held as the layout lays it out (a vertex shard's
+    ``ShardIndex`` cells where the vertices split, where the declared
+    shardings replicate the edges), and then the two totals must agree only
+    where the vertices do not split."""
+    from repro_torch.configs import diff_ife as D
+    from repro_torch.configs.common import leaves_with_shardings
+
+    declared = {k: sum(math.prod(sh.shard_shape(x.shape)) * x.element_size()
+                       for x, sh in leaves_with_shardings(cell.args[i], cell.in_shardings[i]))
+                for i, k in enumerate(("state", "graph", "dirty"))}
+    lay = D.lay_out(cfg, cell.mesh, *D._axes(D.SHAPES[shape].meta), *args)
+    held = D.held_bytes(lay)
+    split = len(lay.coords[0]) > 1
+    del lay
+    if sum(declared.values()) != cell.per_device_bytes():
+        raise AssertionError(f"{cell.name}: the arguments' declared bytes {declared} do not add up to "
+                             f"per_device_bytes {cell.per_device_bytes()}")
+    for c, h in held.items():
+        if h["state"] != declared["state"] or h["dirty"] != declared["dirty"]:
+            raise AssertionError(f"{cell.name}: coordinate {c} holds {h}, the shardings declare {declared}")
+        if not split and h != declared:
+            raise AssertionError(f"{cell.name}: coordinate {c} holds {h}, the shardings declare {declared}")
+    graphs = sorted({h["graph"] for h in held.values()})
+    return {"declared": declared, "per_device_bytes": cell.per_device_bytes(),
+            "held": {"state": declared["state"], "graph": graphs, "dirty": declared["dirty"]},
+            "held_most": declared["state"] + graphs[-1] + declared["dirty"]}
+
+
+def main_diff_ife(device, num_queries: int = DIFF_IFE_QUERIES) -> dict:
+    """``diff-ife`` at the production V = 1,048,576, E = 16,777,216, S = 8
+    and ``max_iters`` 16 with Q cut to ``num_queries`` (``maintain_burst``'s
+    1,024 cut by the same factor to Q/8, on ``maintain_q8k``'s layout).
+    The cell's inputs (``build_cell`` then ``materialize``: a uniform graph
+    with weights 1..10, distinct sources) go through an initial sweep and
+    one δE batch (:data:`DIFF_IFE_UPDATES` deletions and as many edges
+    re-pointed) unsharded, on ``maintain_q8k``'s layout over an emulated
+    (2, 2) ``("data", "model")`` mesh and on ``maintain_q8k_qpar``'s over an
+    emulated (1, 4) one.  The answers, the store's leaves and every
+    ``MaintainStats`` field must be bit-equal across the three, the answers
+    equal SCRATCH's, and each emulated coordinate hold the state blocks and
+    the dirty slice the dry-run's ``per_device_bytes`` counts, exactly, as
+    the layout passes them to the sweep (its graph bytes are recorded beside
+    the declared ones: :func:`_held_against_declared`).  The ``coo`` engine launches none of the five kernels."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import diff_ife as D
+    from repro_torch.core import engine as E
+    from repro_torch.core.scratch import scratch_run
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.kernels import fused_sweep as K2
+    from repro_torch.launch.mesh import make_mesh
+
+    for K in (K1, K2, K3, K4, K5):
+        K.reset_launches()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated()
+    arch = get_arch("diff-ife")
+    meshes = {"maintain_q8k": make_mesh((2, 2), ("data", "model"), device=device, emulate=True),
+              "maintain_q8k_qpar": make_mesh((1, 4), ("data", "model"), device=device, emulate=True)}
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out = {"num_vertices": arch.full().num_vertices, "num_edges": arch.full().num_edges,
+           "store_capacity": arch.full().store_capacity, "max_iters": arch.full().max_iters,
+           "updates": 2 * DIFF_IFE_UPDATES, "memory_allocated_at_start": start_bytes, "shapes": {}}
+    for shape, q, layouts in (("maintain_q8k", num_queries, ("maintain_q8k", "maintain_q8k_qpar")),
+                              ("maintain_burst", num_queries // 8, ("maintain_q8k",))):
+        z = dataclasses.replace(arch.full(), num_queries=q)
+        cells = {lay: arch.build_cell(z, lay, meshes[lay]) for lay in layouts}
+        cfg = D._engine_cfg(z)
+        t0 = time.perf_counter()
+        state, g, dirty = cells[layouts[0]].materialize(device, torch.Generator().manual_seed(SEED))
+        g2, dirty2 = D.edge_batch(g, DIFF_IFE_UPDATES, SEED + 1)
+        torch.cuda.synchronize()
+        rec = {"queries": q, "inputs_s": time.perf_counter() - t0, "dirty_after_batch": int(dirty2.sum())}
+        torch.cuda.reset_peak_memory_stats()
+        (s1, st1), t_init = sync_time(lambda: E.maintain(cfg, state, g, dirty))
+        (s2, st2), t_batch = sync_time(lambda: E.maintain(cfg, s1, g2, dirty2))
+        rec["unsharded"] = {"init_sweep_s": t_init, "batch_sweep_s": t_batch,
+                            "init_iters": int(st1.iters_run), "batch_iters": int(st2.iters_run),
+                            "batch_stats": E._span_stats(st2), "state_bytes": _state_bytes(s2),
+                            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        for when, gg, st in (("init", g, s1), ("batch", g2, s2)):
+            answers, _ = scratch_run(cfg, gg, state.init)
+            if not torch.equal(st.cur, answers):
+                raise AssertionError(f"diff-ife {shape}: the unsharded {when} sweep's answers differ from SCRATCH")
+            del answers
+        for lay, cell in cells.items():
+            held = _held_against_declared(cell, cfg, lay, (state, g, dirty))
+            torch.cuda.reset_peak_memory_stats()
+            (l1, lt1), t_init = sync_time(lambda: cell.fn(state, g, dirty))  # noqa: B023
+            _same_state(l1, s1, lt1, st1, f"diff-ife {shape} on {lay}'s layout, initial sweep")
+            (l2, lt2), t_batch = sync_time(lambda: cell.fn(l1, g2, dirty2))  # noqa: B023
+            del l1
+            _same_state(l2, s2, lt2, st2, f"diff-ife {shape} on {lay}'s layout, δE batch")
+            del l2
+            rec[lay] = {"mesh": dict(cell.mesh.shape), "init_sweep_s": t_init, "batch_sweep_s": t_batch,
+                        "per_device_bytes": cell.per_device_bytes(), "held_per_device": held,
+                        "max_memory_allocated": torch.cuda.max_memory_allocated(), "equals_unsharded": True}
+        rec["answers_equal_scratch"] = True
+        out["shapes"][shape] = rec
+        del state, g, dirty, g2, dirty2, s1, s2
+        torch.cuda.empty_cache()
+    launches = {K.__name__.rsplit(".", 1)[-1]: K.LAUNCHES for K in (K1, K2, K3, K4, K5)}
+    if any(launches.values()):
+        raise AssertionError(f"diff-ife's coo engine launched kernels: {launches}")
+    out["launches"] = launches
+    return out
+
+
+def sweep_dryrun_phase(device) -> dict:
+    """``launch/sweep_dryrun``'s four cells (``ell``/``fused`` x 1 and 8
+    emulated shards) at its CLI defaults on the card: each initial sweep
+    counted, then timed uncounted.  K1 (``ell``) or K2 (``fused``) launches
+    once a shard an iteration in the counted sweep and the other never."""
+    from repro_torch.kernels import bloom as K3
+    from repro_torch.kernels import diff_lookup as K4
+    from repro_torch.kernels import ell_spmv as K1
+    from repro_torch.kernels import fused_sweep as K2
+    from repro_torch.launch import sweep_dryrun as S
+
+    for K in (K1, K2, K3, K4):
+        K.reset_launches()
+    recs = []
+    for backend in ("ell", "fused"):
+        for shards in (1, 8):
+            rec = S.run_cell(backend, shards, v=512, e=2048, num_queries=8, max_iters=32, device=device,
+                             verbose=False)
+            want = shards * rec["iters_run"]
+            k, other = ("ell_spmv", "fused_sweep") if backend == "ell" else ("fused_sweep", "ell_spmv")
+            if rec["launches"] != {k: want, other: 0} or rec["kernels"] != {k: want}:
+                raise AssertionError(f"sweep-{backend} x{shards}: launches {rec['launches']}, taps "
+                                     f"{rec['kernels']}, want {want} {k}")
+            recs.append(rec)
+    return {"cells": recs, "launches": {"ell_spmv": K1.LAUNCHES, "fused_sweep": K2.LAUNCHES,
+                                        "bloom": K3.LAUNCHES, "diff_lookup": K4.LAUNCHES}}
+
+
 def main() -> None:
     import torch
 
@@ -5468,6 +5664,9 @@ def main() -> None:
     emit("main_landmark", **landmark_out)
     del graph0
     torch.cuda.empty_cache()
+    emit("main_diff_ife", **main_diff_ife(dev))
+    sweep_dry = sweep_dryrun_phase(dev)
+    emit("sweep_dryrun", **sweep_dry)
 
     # the CLI drills run as subprocesses beside the parity phases, which time
     # nothing
@@ -5552,12 +5751,13 @@ def main() -> None:
     k4 = vdc_real["diff_lookup"]
     # launches over every main-path run: the ell engine, the three fused
     # ones, the two VDC ones, the governed session, the two server runs, the
-    # landmark session, the sharded run and its parity phase, and the
-    # fifteen cqp_serve processes of the drill
+    # landmark session, the sharded run and its parity phase, the four
+    # sweep_dryrun cells, and the fifteen cqp_serve processes of the drill
     all_runs = {"ell": main_out, **{f"fused_{m}": r for m, r in runs.items()},
                 **{f"vdc_{b}": r for b, r in vdc_runs.items()}, "session": session_out,
                 "serve": serve_out["fault_run"], "serve_clean": serve_out["clean_run"],
                 "landmark": landmark_out, "sharded": sharded_out, "parity_sharded": parity_sh,
+                "sweep_dryrun": sweep_dry,
                 **{f"cqp_serve_{b}_{n}": {"launches": r["kernel_launches"]}
                    for b in ("fused", "ell", "fused_sharded") for n, r in drill[b].items()}}
     launches = {k: sum(r["launches"][k] for r in all_runs.values())

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Every LM, recsys and GNN architecture of the reference resolves; ``diff-ife``
-(the reference's DC-engine config) raises a ``KeyError`` that says it is
-not ported yet.
+Every architecture of the reference resolves, under its name and in its
+order: the five LMs, the four GNNs, ``mind`` and ``diff-ife`` (the DC
+engine as an architecture).
 """
 
 from __future__ import annotations
@@ -20,18 +20,14 @@ _MODULES = {
     "dimenet": "repro_torch.configs.dimenet",
     "equiformer-v2": "repro_torch.configs.equiformer_v2",
     "mind": "repro_torch.configs.mind",
+    "diff-ife": "repro_torch.configs.diff_ife",
 }
-# the reference's other architecture (repro/configs/__init__.py)
-NOT_PORTED = ("diff-ife",)
 
 ARCH_NAMES = list(_MODULES)
 
 
 def get_arch(name: str):
     key = name.replace("_", "-").lower()
-    if key in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP Queue 1 item 9(f3): "
-                       f"configs/diff_ife.py over the 2-D mesh); ported: {ARCH_NAMES}")
     if key not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return importlib.import_module(_MODULES[key]).ARCH

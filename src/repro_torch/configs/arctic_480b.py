@@ -6,7 +6,7 @@
 import torch
 
 from repro_torch.configs.common import ArchSpec
-from repro_torch.configs.lm_harness import LM_SHAPES
+from repro_torch.configs.lm_harness import LM_SHAPES, build_lm_cell
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -58,6 +58,7 @@ ARCH = ArchSpec(
     full=full,
     smoke=smoke,
     shapes=LM_SHAPES,
+    build_cell=build_lm_cell,
     notes="dense-MoE hybrid residual; the reference's EP over the model axis is not "
     "ported (one card holds every expert). long_500k skipped.",
 )

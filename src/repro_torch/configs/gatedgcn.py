@@ -4,7 +4,7 @@ The numbers of ``repro/configs/gatedgcn.py``."""
 import dataclasses
 
 from repro_torch.configs.common import ArchSpec
-from repro_torch.configs.gnn_harness import GNN_SHAPES
+from repro_torch.configs.gnn_harness import build_gnn_cell, GNN_SHAPES
 from repro_torch.models.gnn import gatedgcn as model
 
 
@@ -20,4 +20,9 @@ def _cfg_for_shape(cfg, shape_name, meta):
     return dataclasses.replace(cfg, d_in=min(cfg.d_in, meta["d_feat"]))
 
 
-ARCH = ArchSpec(name="gatedgcn", family="gnn", full=full, smoke=smoke, shapes=GNN_SHAPES)
+def build_cell(cfg, shape_name, mesh):
+    return build_gnn_cell("gatedgcn", cfg, shape_name, mesh, init_params=model.init_params,
+                          loss_fn=model.loss_fn, cfg_for_shape=_cfg_for_shape)
+
+
+ARCH = ArchSpec(name="gatedgcn", family="gnn", full=full, smoke=smoke, shapes=GNN_SHAPES, build_cell=build_cell)

@@ -11,11 +11,15 @@ Shapes (assigned):
 
 Geometric archs (dimenet, equiformer-v2) take positions for every shape;
 non-geometric shapes get synthesized coordinates.  DimeNet also takes capped
-triplet lists.  The reference lowers each cell on a mesh from shape structs
-and shardings; the port runs its cells on one device, from the batch
-builders here (:func:`graph_batch`, :func:`molecule_batch`,
-:func:`sampled_batch` over :func:`uniform_base_graph`).  Sharded cells wait
-for the mesh path (ROADMAP Queue 1 item 9(f)).
+triplet lists.  :func:`build_gnn_cell` is the reference's cell: the train
+step, the batch as meta tensors padded to the 512-device multiple
+(:func:`batch_structs`: node arrays over ``graph_nodes``, edge arrays over
+``graph_edges``) and the parameters and optimizer state replicated.  Its
+edge ids and labels are int64, the port's :class:`~repro_torch.models.gnn.
+common.GraphBatch` (the reference's are int32).  The port runs its cells on
+one device, from the batch builders here (:func:`graph_batch`,
+:func:`molecule_batch`, :func:`sampled_batch` over
+:func:`uniform_base_graph`).
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.common import ShapeDef, value_and_grad
+from repro_torch.configs.common import Cell, ShapeDef, map_tensors, named, replicated, tree_struct, value_and_grad
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.sampler import CSRGraph, SampledSubgraph
 from repro_torch.models.gnn import common as g
 from repro_torch.optim import adamw_update
+from repro_torch.optim.adamw import adamw_init
 
 GNN_SHAPES = {
     "full_graph_sm": ShapeDef("train", dict(n_nodes=2708, n_edges=10556, d_feat=1433)),
@@ -109,6 +114,47 @@ def model_flops_estimate(arch_name: str, cfg, meta: dict) -> float:
     else:
         return 0.0
     return 3.0 * float(fwd)  # fwd + bwd ≈ 3× forward
+
+
+def batch_structs(meta: dict) -> g.GraphBatch:
+    """A shape's batch as meta tensors, padded to :func:`_pad`."""
+    n, e, f = _pad(meta["n_nodes"]), _pad(meta["n_edges"]), meta["d_feat"]
+
+    def t(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return g.GraphBatch(
+        node_feat=t((n, f), torch.float32), edge_src=t((e,), torch.int64), edge_dst=t((e,), torch.int64),
+        edge_feat=t((e, EDGE_FEAT_DIM), torch.float32), node_mask=t((n,), torch.bool),
+        edge_mask=t((e,), torch.bool), pos=t((n, 3), torch.float32), labels=t((n,), torch.int64),
+    )
+
+
+def batch_shardings(mesh) -> g.GraphBatch:
+    nodes, nodes2 = named(mesh, "graph_nodes"), named(mesh, "graph_nodes", None)
+    edges, edges2 = named(mesh, "graph_edges"), named(mesh, "graph_edges", None)
+    return g.GraphBatch(node_feat=nodes2, edge_src=edges, edge_dst=edges, edge_feat=edges2,
+                        node_mask=nodes, edge_mask=edges, pos=nodes2, labels=nodes)
+
+
+def build_gnn_cell(arch_name: str, cfg, shape_name: str, mesh, *, init_params, loss_fn, cfg_for_shape=None,
+                   extra_args=None, extra_shardings=None) -> Cell:
+    """The train cell of a GNN on a shape: parameters and AdamW state
+    replicated (the gradients would all-reduce over the mesh), the batch
+    split by :func:`batch_shardings`, ``extra_args`` (DimeNet's triplets)
+    after it; ``model_flops`` :func:`model_flops_estimate`."""
+    meta = GNN_SHAPES[shape_name].meta
+    if cfg_for_shape is not None:
+        cfg = cfg_for_shape(cfg, shape_name, meta)
+    ps = init_params(cfg, None, device="meta")
+    rep = replicated(mesh)
+    os_ = tree_struct(adamw_init, ps)
+    args = (ps, os_, batch_structs(meta)) + tuple(extra_args or ())
+    in_sh = (map_tensors(lambda _: rep, ps), map_tensors(lambda _: rep, os_), batch_shardings(mesh)) \
+        + tuple(extra_shardings or ())
+    step = make_gnn_train_step(lambda p, *a: loss_fn(cfg, p, *a))
+    return Cell(f"{arch_name}:{shape_name}", step, args, in_sh, mesh=mesh,
+                model_flops=model_flops_estimate(arch_name, cfg, meta))
 
 
 # ------------------------------------------------------------------ batches

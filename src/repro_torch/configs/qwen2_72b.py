@@ -5,7 +5,7 @@ GQA with QKV bias.  [arXiv:2407.10671; hf]  The numbers of
 import torch
 
 from repro_torch.configs.common import ArchSpec
-from repro_torch.configs.lm_harness import LM_SHAPES
+from repro_torch.configs.lm_harness import LM_SHAPES, build_lm_cell
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -49,5 +49,6 @@ ARCH = ArchSpec(
     full=full,
     smoke=smoke,
     shapes=LM_SHAPES,
+    build_cell=build_lm_cell,
     notes="long_500k skipped: full-softmax attention.",
 )

@@ -6,7 +6,7 @@ vocab=151936, 60 routed experts top-4 + shared experts (d_ff 5632).
 import torch
 
 from repro_torch.configs.common import ArchSpec
-from repro_torch.configs.lm_harness import LM_SHAPES
+from repro_torch.configs.lm_harness import LM_SHAPES, build_lm_cell
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -60,6 +60,7 @@ ARCH = ArchSpec(
     full=full,
     smoke=smoke,
     shapes=LM_SHAPES,
+    build_cell=build_lm_cell,
     notes="4 shared + 60 routed top-4; shared experts fused into one SwiGLU "
     "of width 4x1408=5632 with a sigmoid shared-expert gate. long_500k skipped.",
 )

@@ -783,7 +783,8 @@ def _next_carry(c: _Carry, body: tuple[_Step, Tensor, Tensor], pushed: Tensor,
 
 def _sweep(cfg: EngineConfig, shards: list[_Shard], devices) -> tuple[list[EngineState], MaintainStats]:
     """The maintenance loop over the shards of a mesh (one shard:
-    unsharded).  Returns each shard's new state and the summed stats.
+    unsharded).  Returns each shard's new state and the summed stats: the
+    one-block case of :func:`_sweep_blocks`.
 
     Each iteration gathers the exact front once, runs every shard's body,
     then the collectives: the DroppedVT merge, the changed mask gathered for
@@ -803,6 +804,13 @@ def _sweep(cfg: EngineConfig, shards: list[_Shard], devices) -> tuple[list[Engin
     dropping off ``drop.max_iter`` stays -1.  i == 1 always runs when
     anything is dirty.
     """
+    states, stats = _sweep_blocks(cfg, [shards], [devices])
+    return states[0], stats[0]
+
+
+def _first_carries(cfg: EngineConfig, shards: list[_Shard], devices) -> list[_Carry]:
+    """A block's carries into iteration 1 (VDC: its shards get their
+    padded dirty mask and ``j0``, in place in ``shards``)."""
     vdc = cfg.mode == "vdc"
     init_full = mesh_lib.all_gather([sh.state.init for sh in shards], devices)
     carries = []
@@ -831,59 +839,93 @@ def _sweep(cfg: EngineConfig, shards: list[_Shard], devices) -> tuple[list[Engin
             stats=zeros_stats(dev),
             owned=False,
         ))
-    groups = _push_groups(shards, devices)
-    num_local = shards[0].state.cur.shape[1]
+    return carries
+
+
+def _block_iteration(cfg: EngineConfig, shards: list[_Shard], devices, carries: list[_Carry],
+                     groups: list[_PushGroup]) -> tuple[list[_Carry], Tensor, Tensor]:
+    """One IFE iteration of a block's shards: (their next carries, whether
+    any is still live, whether any stored a point), the two on the block's
+    first device."""
+    i = carries[0].i
+    # the one O(V) exchange: the exact front, for messages from remote sources
+    cur_full = mesh_lib.all_gather([c.cur for c in carries], devices)
+    bodies = [_shard_body(cfg, sh, c, cf) for sh, c, cf in zip(shards, carries, cur_full)]
+    del cur_full
+    steps = [b[0] for b in bodies]
+    drops = _merge_drops(cfg, carries, steps, devices)
+    pushed = _push(groups, mesh_lib.all_gather([st.changed for st in steps], devices),
+                   shards[0].state.cur.shape[1])
+    prev = [None] * len(carries)
+    if cfg.mode == "vdc":
+        # a vertex rescheduled at i may have reverted to its old value
+        # without reading as changed; its out-edges' stored messages must
+        # be re-checked at i+1 all the same, or a stale J row outlives it
+        prev = mesh_lib.all_gather([st.changed | sched for st, sched, _ in bodies], devices)
+    bin_i = min(i - 1, ITER_TRACE - 1)  # iteration i lands in bin i-1 (clamped)
+    nxt = [_next_carry(c, body, pushed[k], prev[k], drops[k], bin_i)
+           for k, (c, body) in enumerate(zip(carries, bodies))]
+    lives = [c.frontier.any() | sh.dirty.any() for sh, c in zip(shards, nxt)]
+    any_store = mesh_lib.por([st.to_store.any() for st in steps], devices)[0]
+    return nxt, mesh_lib.por(lives, devices)[0], any_store
+
+
+def _sweep_blocks(cfg: EngineConfig, blocks: list[list[_Shard]], devices: list[list]
+                  ) -> tuple[list[list[EngineState]], list[MaintainStats]]:
+    """The maintenance loop over query blocks, each a vertex-sharded sweep
+    of its own (``blocks[b]``: its shards, ``devices[b]`` their devices;
+    ``cfg.num_queries`` is a block's).  Returns each block's shard states
+    and stats.
+
+    The blocks share the loop's control: ``live``, the horizon and
+    ``drop.max_iter`` are reduced over every block before the one host sync
+    of an iteration, so each block runs exactly the iterations the whole
+    query axis would run in one sweep (a block's own horizon would stop it
+    early, and its dirty vertices, rerun at every live iteration, would
+    count differently).  Nothing else crosses between blocks; one block's
+    iteration runs, and frees its temporaries, before the next one's."""
+    carries = [_first_carries(cfg, shards, devs) for shards, devs in zip(blocks, devices)]
+    groups = [_push_groups(shards, devs) for shards, devs in zip(blocks, devices)]
+    all_shards = [sh for shards in blocks for sh in shards]
+    all_devices = [d for devs in devices for d in devs]
+    firsts = [devs[0] for devs in devices]
     # the loop scalars, replicated in the reference, live on the first device
-    horizon = mesh_lib.pmax([stored_horizon(sh.state.dstore) for sh in shards], devices)[0]
-    live = mesh_lib.por([sh.dirty.any() for sh in shards], devices)[0]
-    while carries[0].i <= cfg.max_iters:
-        i = carries[0].i
+    horizon = mesh_lib.pmax([stored_horizon(sh.state.dstore) for sh in all_shards], all_devices)[0]
+    live = mesh_lib.por([sh.dirty.any() for sh in all_shards], all_devices)[0]
+    while carries[0][0].i <= cfg.max_iters:
+        i = carries[0][0].i
+        max_iter = mesh_lib.pmax([c[0].drop.max_iter for c in carries], firsts)[0]
         # the one host sync of an iteration: all loop scalars at once
-        live_h, horizon_h, max_iter_h = torch.stack(
-            [live.to(torch.int32), horizon, carries[0].drop.max_iter]
-        ).tolist()
+        live_h, horizon_h, max_iter_h = torch.stack([live.to(torch.int32), horizon, max_iter]).tolist()
         if not (live_h and (i == 1 or i <= max(horizon_h, max_iter_h) + 1)):
             break
-        # the one O(V) exchange: the exact front, for messages from remote sources
-        cur_full = mesh_lib.all_gather([c.cur for c in carries], devices)
-        bodies = [_shard_body(cfg, sh, c, cf) for sh, c, cf in zip(shards, carries, cur_full)]
-        steps = [b[0] for b in bodies]
-        drops = _merge_drops(cfg, carries, steps, devices)
-        pushed = _push(groups, mesh_lib.all_gather([st.changed for st in steps], devices), num_local)
-        if vdc:
-            # a vertex rescheduled at i may have reverted to its old value
-            # without reading as changed; its out-edges' stored messages must
-            # be re-checked at i+1 all the same, or a stale J row outlives it
-            prev = mesh_lib.all_gather([st.changed | sched for st, sched, _ in bodies], devices)
-        bin_i = min(i - 1, ITER_TRACE - 1)  # iteration i lands in bin i-1 (clamped)
-        # (a comprehension, so no loop variable keeps the old carries alive)
-        carries = [
-            _next_carry(c, body, pushed[k], prev[k] if vdc else None, drops[k], bin_i)
-            for k, (c, body) in enumerate(zip(carries, bodies))
-        ]
-        lives = [c.frontier.any() | sh.dirty.any() for sh, c in zip(shards, carries)]
-        stores = [st.to_store.any() for st in steps]
-        any_store = mesh_lib.por(stores, devices)[0]
-        live = mesh_lib.por(lives, devices)[0]
+        lives, stores = [], []
+        for b, (shards, devs) in enumerate(zip(blocks, devices)):
+            # (rebinding the block's carries frees the old ones before the next block runs)
+            carries[b], block_live, block_store = _block_iteration(cfg, shards, devs, carries[b], groups[b])
+            lives.append(block_live)
+            stores.append(block_store)
+        live = mesh_lib.por(lives, firsts)[0]
+        any_store = mesh_lib.por(stores, firsts)[0]
         horizon = torch.where(any_store, horizon.clamp(min=i), horizon)
-        # the steps hold this iteration's temporaries (and prob's eviction
-        # views of the input store): free them before the next body runs
-        del cur_full, bodies, steps, pushed, stores
 
-    # per-shard partial sums → global; iters_run is the same on every shard
-    summed = [mesh_lib.psum([getattr(c.stats, f) for c in carries], devices)[0] for f in MaintainStats._fields]
-    stats = MaintainStats(*summed)._replace(iters_run=carries[0].stats.iters_run)
-    # Det-Drop record loss this sweep (replicated after the merges)
-    stats = stats._replace(det_overflow=carries[0].drop.det_overflow - shards[0].state.drop.det_overflow)
-    states = []
-    for sh, c in zip(shards, carries):
-        # a sweep with nothing dirty runs no iteration and changes nothing: its
-        # answers stay the last sweep's (the carry's `cur` is still D_0; the
-        # reference returns that, ROADMAP Queue 3)
-        cur = c.cur if c.i > 1 else sh.state.cur
-        states.append(sh.state._replace(
-            dstore=c.dstore, jstore=c.jstore, drop=c.drop, cur=cur, repair_counts=c.repair_counts
-        ))
+    states, stats = [], []
+    for shards, devs, block in zip(blocks, devices, carries):
+        # per-shard partial sums → the block's; iters_run is the same on every shard
+        summed = [mesh_lib.psum([getattr(c.stats, f) for c in block], devs)[0] for f in MaintainStats._fields]
+        st = MaintainStats(*summed)._replace(iters_run=block[0].stats.iters_run)
+        # Det-Drop record loss this sweep (replicated after the merges)
+        stats.append(st._replace(det_overflow=block[0].drop.det_overflow - shards[0].state.drop.det_overflow))
+        out = []
+        for sh, c in zip(shards, block):
+            # a sweep with nothing dirty runs no iteration and changes nothing: its
+            # answers stay the last sweep's (the carry's `cur` is still D_0; the
+            # reference returns that, ROADMAP Queue 3)
+            cur = c.cur if c.i > 1 else sh.state.cur
+            out.append(sh.state._replace(
+                dstore=c.dstore, jstore=c.jstore, drop=c.drop, cur=cur, repair_counts=c.repair_counts
+            ))
+        states.append(out)
     return states, stats
 
 
@@ -925,14 +967,68 @@ def maintain_sharded(
     shard's block (the edge cells in the :class:`ShardIndex` layout),
     ``dirty`` is global ([V] or [Q, V]).  Returns each shard's new state and
     the global stats.  One shard is the unsharded sweep."""
+    return _sweep(cfg, _block_shards(cfg, devices, states, gs, dirty), devices)
+
+
+def _block_shards(cfg: EngineConfig, devices, states: list[EngineState], gs: list[GraphArrays],
+                  dirty: Tensor) -> list[_Shard]:
     dirty = _dirty_2d(cfg, dirty)
     n = cfg.num_vertices // len(states)
-    shards = [
+    return [
         _make_shard(cfg, st, g, dirty[:, k * n:(k + 1) * n].to(dev), k * n,
                     None if len(states) == 1 else _local_dst(g.dst, k * n, n))
         for k, (st, g, dev) in enumerate(zip(states, gs, devices))
     ]
-    return _sweep(cfg, shards, devices)
+
+
+def maintain_blocks(
+    cfg: EngineConfig, devices: list, states: list[list[EngineState]], gs: list[list[GraphArrays]],
+    dirty: list[Tensor],
+) -> tuple[list[list[EngineState]], list[MaintainStats]]:
+    """:func:`maintain_sharded` over blocks of the query axis that share the
+    loop's control (:func:`_sweep_blocks`): block ``b`` sweeps
+    ``cfg.num_queries`` queries over the shards ``states[b]``/``gs[b]`` on
+    ``devices[b]``, seeded by ``dirty[b]`` ([V], or its rows [Q_b, V]).
+    Returns each block's shard states and its stats; every block runs the
+    iterations one sweep of all the blocks' queries runs, so the blocks'
+    stats combine into that sweep's (:func:`combine_stats`)."""
+    blocks = [_block_shards(cfg, devs, sts, g, d) for devs, sts, g, d in zip(devices, states, gs, dirty)]
+    return _sweep_blocks(cfg, blocks, [list(d) for d in devices])
+
+
+def combine_stats(parts: list[MaintainStats]) -> MaintainStats:
+    """The stats of query blocks swept together (:func:`maintain_blocks`)
+    as one sweep's: ``iters_run`` their max (they are equal), every other
+    counter and both per-iteration series summed, on the first block's
+    device."""
+    dev = parts[0].iters_run.device
+    out = [torch.stack([getattr(p, f).to(dev) for p in parts]).amax(0) if f == "iters_run"
+           else torch.stack([getattr(p, f).to(dev) for p in parts]).sum(0, dtype=torch.int32)
+           for f in MaintainStats._fields]
+    return MaintainStats(*out)
+
+
+def shard_graph_arrays(snap: GraphSnapshot, index: ShardIndex, devices, nbr: np.ndarray | None = None,
+                       ell_w: np.ndarray | None = None) -> list[GraphArrays]:
+    """Each shard's device graph: its edge cells (``index``'s layout), its
+    block of in-degrees and ELL rows (neighbour ids stay global: the kernels
+    gather from the full front), and every vertex's out-degree."""
+    src, dst, w, valid = index.edge_arrays(snap)
+    out_degree = mesh_lib.replicate(torch.from_numpy(snap.out_degree), devices)
+    c, nb = index.shard_capacity, index.vertices_per_shard
+    gs = []
+    for k, dev in enumerate(devices):
+        cells, rows = slice(k * c, (k + 1) * c), slice(k * nb, (k + 1) * nb)
+
+        def put(x: np.ndarray | None) -> Tensor | None:
+            return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+        gs.append(GraphArrays(
+            src=put(src[cells]), dst=put(dst[cells]), weight=put(w[cells]), valid=put(valid[cells]),
+            out_degree=out_degree[k], in_degree=put(snap.in_degree[rows]),
+            nbr=put(None if nbr is None else nbr[rows]), ell_w=put(None if ell_w is None else ell_w[rows]),
+        ))
+    return gs
 
 
 def shed_slot(cfg: EngineConfig, state: EngineState, g: GraphArrays, slot: int, off: int = 0) -> EngineState:
@@ -1380,31 +1476,15 @@ class DiffIFE:
         return GraphArrays.from_snapshot(snap, device=self.device)
 
     def _device_graphs_sharded(self, snap: GraphSnapshot) -> list[GraphArrays]:
-        """Each shard's edge cells (:class:`ShardIndex` layout), its block of
-        in-degrees and ELL rows (neighbour ids stay global: the kernels
-        gather from the full front), and every vertex's out-degree."""
+        """Each shard's device graph (:func:`shard_graph_arrays`) in the
+        :class:`ShardIndex` layout."""
         if self._shard_index is None:
             self._shard_index = ShardIndex(snap, self.num_shards)
-        src, dst, w, valid = self._shard_index.edge_arrays(snap)
         nbr = ell_w = None
         if self.cfg.backend in ("ell", "fused"):
             nbr, ell_w, self._ell_width = snap.to_ell(min_width=self._ell_width)
             self._ell_index = EllIndex(snap, self._ell_width)
-        out_degree = mesh_lib.replicate(torch.from_numpy(snap.out_degree), self.devices)
-        c = self._shard_index.shard_capacity
-        gs = []
-        for k, dev in enumerate(self.devices):
-            cells, rows = slice(k * c, (k + 1) * c), self._block(k)
-
-            def put(x: np.ndarray | None) -> Tensor | None:
-                return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-            gs.append(GraphArrays(
-                src=put(src[cells]), dst=put(dst[cells]), weight=put(w[cells]), valid=put(valid[cells]),
-                out_degree=out_degree[k], in_degree=put(snap.in_degree[rows]),
-                nbr=put(None if nbr is None else nbr[rows]), ell_w=put(None if ell_w is None else ell_w[rows]),
-            ))
-        return gs
+        return shard_graph_arrays(snap, self._shard_index, self.devices, nbr, ell_w)
 
     def _shard_sync(self, ops, snap: GraphSnapshot | None = None) -> list | None:
         """Fold resolved ops into the shard index; regrow on overflow.

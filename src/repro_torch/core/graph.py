@@ -531,6 +531,14 @@ class ShardOverflow(Exception):
     per-shard capacity (the index is stale once this is raised)."""
 
 
+def shard_capacity(capacity: int, num_shards: int, fullest: int = 0, min_capacity: int = 0) -> int:
+    """Edge cells a shard of :class:`ShardIndex`'s layout has: the fullest
+    shard's live edges, the host ``capacity`` spread evenly over
+    ``num_shards``, ``min_capacity`` and 8, the largest rounded up to 8."""
+    cap = max(int(fullest), -(-int(capacity) // num_shards), int(min_capacity), 8)
+    return -(-cap // 8) * 8
+
+
 class ShardIndex:
     """Host mirror of the vertex-sharded edge layout (the mesh's data axis).
 
@@ -555,13 +563,7 @@ class ShardIndex:
         live = np.nonzero(snap.valid)[0]
         shard = snap.dst[live].astype(np.int64) // self.vertices_per_shard
         counts = np.bincount(shard, minlength=n)
-        cap = max(
-            int(counts.max(initial=0)),
-            -(-snap.capacity // n),  # even spread of the host capacity
-            int(min_capacity),
-            8,
-        )
-        self.shard_capacity = -(-cap // 8) * 8
+        self.shard_capacity = shard_capacity(snap.capacity, n, int(counts.max(initial=0)), min_capacity)
         order = np.argsort(shard, kind="stable")  # stable: slot order within a shard
         start = np.cumsum(counts) - counts
         pos = np.empty(live.shape[0], np.int64)

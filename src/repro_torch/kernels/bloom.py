@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.core.bloom import M32, hash_key
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tap
 
 Tensor = torch.Tensor
 
@@ -77,7 +77,9 @@ def bloom_query(words: Tensor, v: Tensor, i: Tensor, salt: Tensor, *, num_hashes
     (salted by ``salt[q]``)?  bool [Q, N], no false negatives.
 
     CUDA tensors launch the kernel (built on first use); CPU tensors take
-    the plain version.  Anything else raises.
+    the plain version (meta tensors too, for the output's shape).  Anything
+    else raises.  A counting run (``launch/hlo_analysis``) sees the
+    kernel's bytes.
     """
     if words.dtype != torch.int32 or v.dtype != torch.int32 or i.dtype != torch.int32:
         raise TypeError(f"words/v/i must be int32, got {words.dtype}/{v.dtype}/{i.dtype}")
@@ -95,10 +97,15 @@ def bloom_query(words: Tensor, v: Tensor, i: Tensor, salt: Tensor, *, num_hashes
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
-        return bloom_query_ref(words, v, i, salt, num_hashes=num_hashes)
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"bloom_query runs on cuda or cpu tensors (meta: shapes), not {dev}")
+    # its bound's bytes: each key's v and i read and its answer written, the
+    # salts and (at most) every filter word; the hashing never binds
+    if _tap.counting():
+        _tap.tap_kernel("bloom_query", 0.0, float(q * n * 9 + q * 4 + words.numel() * 4))
     if dev.type != "cuda":
-        raise ValueError(f"bloom_query runs on cuda or cpu tensors, not {dev}")
+        with _tap.uncounted():
+            return bloom_query_ref(words, v, i, salt, num_hashes=num_hashes)
     if q >= 65536:
         raise ValueError("bloom_query takes fewer than 65536 filter rows")
     words, v, i, salt = (t.contiguous() for t in (words, v, i, salt))

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tap
 
 Tensor = torch.Tensor
 
@@ -58,7 +58,9 @@ def diff_lookup(iters: Tensor, vals: Tensor, qi: Tensor | int) -> tuple[Tensor, 
     float32 ``[N, S]``, ``qi`` int32 ``[N]`` or one Python int for every
     row (passed to the kernel as a scalar).  Returns ``(val f32 [N], iter
     i32 [N], found bool [N])``.  CUDA tensors launch the kernel (built on
-    first use); CPU tensors take the plain version.  Anything else raises.
+    first use); CPU tensors take the plain version (meta tensors too, for
+    the outputs' shapes).  Anything else raises.  A counting run
+    (``launch/hlo_analysis``) sees the kernel's bytes.
     """
     if iters.dtype != torch.int32 or vals.dtype != torch.float32:
         raise TypeError(f"iters/vals must be int32/float32, got {iters.dtype}/{vals.dtype}")
@@ -79,12 +81,17 @@ def diff_lookup(iters: Tensor, vals: Tensor, qi: Tensor | int) -> tuple[Tensor, 
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
-        return diff_lookup_ref(iters, vals, qi)
-    if dev.type != "cuda":
-        raise ValueError(f"diff_lookup runs on cuda or cpu tensors, not {dev}")
-    iters, vals = iters.contiguous(), vals.contiguous()
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"diff_lookup runs on cuda or cpu tensors (meta: shapes), not {dev}")
     s = iters.shape[1]
+    # its bound's bytes with a value gathered for every row: each row's S
+    # iterations read, val + iter + found written
+    if _tap.counting():
+        _tap.tap_kernel("diff_lookup", 0.0, float(n * s * 4 + n * 4 + n * 9))
+    if dev.type != "cuda":
+        with _tap.uncounted():
+            return diff_lookup_ref(iters, vals, qi)
+    iters, vals = iters.contiguous(), vals.contiguous()
     qi_t = qi.contiguous() if isinstance(qi, Tensor) else None
     out_val = torch.empty(n, dtype=torch.float32, device=dev)
     out_iter = torch.empty(n, dtype=torch.int32, device=dev)

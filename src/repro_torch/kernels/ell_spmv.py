@@ -14,7 +14,10 @@ design.  Layout (see ``GraphSnapshot.to_ell``):
     out    [Q, V]
 
 :func:`ell_spmv` launches the kernel for CUDA tensors and runs
-:func:`ell_spmv_ref`, the plain PyTorch version, for CPU tensors.  The
+:func:`ell_spmv_ref`, the plain PyTorch version, for CPU tensors (and for
+meta tensors, for the output's shape).  Every call adds :func:`cost` to a
+counting run (``launch/hlo_analysis``); the plain version's ops count
+nothing.  The
 kernel reads the states transposed, ``[Vp, Q]``: the public function
 transposes them, and the engine builds them so in one pass
 (:func:`transpose_states`) and passes ``transposed=True``.
@@ -26,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tap
 
 SEMIRINGS = ("min_plus", "min_hop", "min_label", "pr_sum")
 SOURCE = "ell_spmv.cu"
@@ -127,12 +130,23 @@ def ell_spmv(
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
-        return ell_spmv_ref(states_t, nbr, w, carry, semiring=semiring, hop_cap=hop_cap,
-                            transposed=True)
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"ell_spmv runs on cuda or cpu tensors (meta: shapes), not {dev}")
+    if _tap.counting():
+        _tap.tap_kernel("ell_spmv", *cost(q, v, d, semiring))
     if dev.type != "cuda":
-        raise ValueError(f"ell_spmv runs on cuda or cpu tensors, not {dev}")
+        with _tap.uncounted():
+            return ell_spmv_ref(states_t, nbr, w, carry, semiring=semiring, hop_cap=hop_cap,
+                                transposed=True)
     return _launch(states_t, nbr, w, carry, semiring, hop_cap, dev)
+
+
+def cost(q: int, v: int, d: int, semiring: str) -> tuple[float, float]:
+    """(operations, bytes) of one call, its bound's counts: each input read
+    once and the output written once (w only where the semiring reads it),
+    one msg + one reduce per cell."""
+    uses_w = semiring in ("min_plus", "pr_sum")
+    return 2.0 * q * v * d, float(v * d * 4 * (2 if uses_w else 1) + q * (v + 1) * 4 + 2 * q * v * 4)
 
 
 def _launch(states_t, nbr, w, carry, semiring, hop_cap, dev) -> torch.Tensor:

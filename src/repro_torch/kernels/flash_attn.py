@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tap
 
 Tensor = torch.Tensor
 
@@ -62,10 +62,19 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def _row_blocks(b: int, hq: int, sq: int, sk: int):
+# row blocks at most on the meta device (the dry-run's shapes): it holds no
+# memory, and a block's ops cost the same there whatever its size
+_META_BLOCKS = 8
+
+
+def _row_blocks(b: int, hq: int, sq: int, sk: int, device=None):
     """Blocks ``(r0, r1)`` of query rows whose scores ``[B, Hq, r1 - r0,
-    Sk]`` stay within :data:`_PLAIN_BLOCK` elements."""
+    Sk]`` stay within :data:`_PLAIN_BLOCK` elements; on the meta device at
+    most :data:`_META_BLOCKS` (a causal block reads the keys its last row
+    sees, so fewer blocks count somewhat more keys than the card reads)."""
     rows = max(1, _PLAIN_BLOCK // max(1, b * hq * sk))
+    if device is not None and device.type == "meta":
+        rows = max(rows, -(-sq // _META_BLOCKS))
     return [(r0, min(sq, r0 + rows)) for r0 in range(0, sq, rows)]
 
 
@@ -127,7 +136,7 @@ def flash_attention_backward_plain(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.zeros(k.shape, dtype=acc, device=q.device)
     dv = torch.zeros(v.shape, dtype=acc, device=q.device)
-    for r0, r1 in _row_blocks(b, hq, sq, sk):
+    for r0, r1 in _row_blocks(b, hq, sq, sk, q.device):
         n = group * (r1 - r0)
         c1 = min(sk, r1) if causal else sk
         kb, vb = kf[:, :, :c1], vf[:, :, :c1]
@@ -198,8 +207,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {dev}")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors (meta: shapes), not {dev}")
     if dev.type == "cuda":
         if d not in HEAD_DIMS:
             raise ValueError(f"the CUDA kernel is built for D in {sorted(HEAD_DIMS)}, got {d}")
@@ -212,12 +221,34 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
 
 def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, scale: float | None) -> Tensor:
-    """The plain version for CPU tensors, the kernel for CUDA ones (operands
-    checked by :func:`flash_attention`); no autograd graph either way."""
-    if q.device.type == "cpu":
-        with torch.no_grad():
+    """The plain version for CPU tensors (an output of q's shape for meta
+    ones), the kernel for CUDA ones (operands checked by
+    :func:`flash_attention`); no autograd graph either way.  A counting run
+    (``launch/hlo_analysis``) sees :func:`cost`."""
+    if _tap.counting():
+        b, hq, sq, d = q.shape
+        flops, nbytes = cost(b, hq, k.shape[1], sq, k.shape[2], d, causal, q.element_size())
+        _tap.tap_kernel("flash_attention", flops, nbytes, tensor_core=q.dtype == torch.bfloat16)
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.device.type != "cuda":
+        with torch.no_grad(), _tap.uncounted():
             return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     return _launch(q, k, v, causal, scale)
+
+
+def cost(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, causal: bool, itemsize: int
+         ) -> tuple[float, float]:
+    """(operations, bytes) of one forward call, its bound's counts: 4·d
+    operations per visible (row, key) pair (QK^T and PV; causal counts the
+    pairs on and under the top-left diagonal), q, k, v read once and the
+    output written once."""
+    if causal:
+        m = min(sq, sk)
+        pairs = m * (m + 1) // 2 + max(0, sq - sk) * sk
+    else:
+        pairs = sq * sk
+    return 4.0 * b * hq * pairs * d, float(itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk))
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, causal: bool, scale: float | None) -> Tensor:

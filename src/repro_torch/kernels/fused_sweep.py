@@ -25,7 +25,8 @@ push, and the Bloom *insert* (prob mode: the engine folds ``to_drop`` and
 :func:`fused_sweep` launches the kernel for CUDA tensors and runs
 :func:`fused_sweep_ref`, the plain PyTorch version (the reference's kernel
 body written with the port's store, drop and Bloom functions), for CPU
-tensors.
+tensors (and for meta tensors, for the outputs' shapes).  Every call adds
+:func:`cost` to a counting run (``launch/hlo_analysis``).
 
 Where the reference returns new stores, the port may update the working
 stores in place (``inplace=True``: the D store, and the Det store in det
@@ -44,7 +45,7 @@ import torch
 from repro_torch.core import bloom as bloom_lib
 from repro_torch.core import diffstore as ds
 from repro_torch.core import dropping as dr
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tap
 from repro_torch.kernels.ell_spmv import SEMIRINGS, ell_spmv_ref
 
 Tensor = torch.Tensor
@@ -377,13 +378,52 @@ def fused_sweep(
               semiring=semiring, hop_cap=hop_cap, drop_mode=drop_mode, inplace=inplace, off=off)
     if off < 0 or off + sched.shape[1] > 2**31 - 1:
         raise ValueError(f"fused_sweep takes global vertex ids below 2**31, got off={off}")
-    if dev.type == "cpu":
-        return fused_sweep_ref(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore,
-                               states=states_t, transposed=True, **kw)
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"fused_sweep runs on cuda or cpu tensors (meta: shapes), not {dev}")
+    if _tap.counting():
+        _tap.tap_kernel("fused_sweep", *cost(sched, cur, dstore, old_dstore, states_t, kw))
     if dev.type != "cuda":
-        raise ValueError(f"fused_sweep runs on cuda or cpu tensors, not {dev}")
+        with _tap.uncounted():
+            return fused_sweep_ref(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore,
+                                   states=states_t, transposed=True, **kw)
     return _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev,
                    states_t=states_t, **kw)
+
+
+def cost(sched: Tensor, cur: Tensor, dstore: ds.DiffStore, old_dstore: ds.DiffStore, states_t, kw: dict
+         ) -> tuple[float, float]:
+    """(operations, bytes) of one call in its dense form: every store row's
+    iterations, values and count read and written, the old store read, the
+    [Q, V] inputs and outputs once, the whole adjacency and every state
+    read (or the candidate, ``new=``), the Det rows or one byte a Bloom
+    probe; one msg + one reduce per adjacency cell.  How many rows a call
+    really touches depends on the data (the bound's count, in
+    ``chip_smoke.fused_bounds_ms``); this is its most."""
+    q, v = sched.shape
+    qv, s, so = q * v, dstore.capacity, old_dstore.capacity
+    rd = q + qv * 4 * 2 + qv * 2  # active, cur + cur_old, sched + stale_old
+    flops = 0.0
+    if kw["new"] is not None:
+        rd += qv * 4
+    else:
+        d = kw["nbr"].shape[1]
+        rd += states_t.numel() * 4 + v * d * 4 * (2 if kw["semiring"] in ("min_plus", "pr_sum") else 1)
+        carry = kw["kcarry"]
+        rd += qv * 4 if carry is not cur else 0
+        flops = 2.0 * q * v * d
+    wr = qv * (4 + 4 + 4 + 7)  # cur, old, evicted_iter, seven masks
+    mode = kw["drop_mode"]
+    if mode != "none":
+        rd += v * 4 + q * 17  # degree, params
+    if mode == "prob":
+        rd += min(q * kw["bloom_bits"].shape[1], qv * kw["bloom_hashes"])
+    rd += qv * (s * 8 + 4) + qv * (so * 4 + 4)
+    wr += qv * (s * 8 + 4)
+    if mode == "det":
+        sd = kw["det"].capacity
+        rd += qv * (sd + 1) * 4
+        wr += qv * (sd + 1) * 4 + q * 8
+    return flops, float(rd + wr)
 
 
 def _launch(i, sched, active, cur, cur_old, stale_old, dstore, old_dstore, dev, *, states_t,

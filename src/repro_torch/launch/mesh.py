@@ -35,6 +35,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels import _tap
+
 Tensor = torch.Tensor
 
 
@@ -275,10 +277,14 @@ def replicate(x: Tensor, devices) -> list[Tensor]:
 # --------------------------------------------------------------------------- collectives
 def all_gather(parts: list[Tensor], devices, dim: int = -1) -> list[Tensor]:
     """The shards' blocks concatenated along ``dim``, on every shard's
-    device (once per distinct device).  One shard: its block itself."""
+    device (once per distinct device).  One shard: its block itself.  A
+    counting run (``launch/hlo_analysis``) sees its result bytes."""
     if len(parts) == 1:
         return list(parts)
-    return _per_device(devices, lambda d: torch.cat([p.to(d) for p in parts], dim=dim))
+    if _tap.counting():
+        _tap.tap_collective("all-gather", sum(p.numel() for p in parts) * parts[0].element_size())
+    with _tap.uncounted():
+        return _per_device(devices, lambda d: torch.cat([p.to(d) for p in parts], dim=dim))
 
 
 def _reduce(parts: list[Tensor], devices, op) -> list[Tensor]:
@@ -291,7 +297,10 @@ def _reduce(parts: list[Tensor], devices, op) -> list[Tensor]:
             acc = op(acc, p.to(d))
         return acc
 
-    return _per_device(devices, make)
+    if _tap.counting():
+        _tap.tap_collective("all-reduce", parts[0].numel() * parts[0].element_size())
+    with _tap.uncounted():
+        return _per_device(devices, make)
 
 
 def psum(parts: list[Tensor], devices) -> list[Tensor]:

@@ -15,7 +15,7 @@ reference's does) and its printed lines, for the five LMs
 ``arctic-480b``), ``mind`` and the four GNNs (``diff-ife`` points to
 ``examples/continuous_queries.py``, as the reference's does; training
 qwen2-72b or arctic-480b at full width needs their products split over
-cards, ROADMAP Queue 1).  It adds ``--device`` (default: the CUDA device) and ``--json``
+cards, ROADMAP Queue 2).  It adds ``--device`` (default: the CUDA device) and ``--json``
 (a last line with every step's loss and wall seconds, the history and a
 digest of the final parameters).  Without ``--ckpt-dir`` a run checkpoints
 into a fresh directory of its own under the temporary directory and
@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import ARCH_NAMES, NOT_PORTED, get_arch
+from repro_torch.configs import ARCH_NAMES, get_arch
 from repro_torch.core.engine import resolve_device
 from repro_torch.optim import adamw_init
 from repro_torch.optim.adamw import tree_leaves
@@ -165,7 +165,7 @@ def params_digest(params) -> str:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=ARCH_NAMES + list(NOT_PORTED))
+    ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--ckpt-dir", default=None, help="default: a fresh directory, removed at the end")

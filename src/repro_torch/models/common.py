@@ -11,7 +11,7 @@ attentions are the distributed log-sum-exp ones (:func:`dlse_decode_attention`,
 sequence, each shard's softmax statistics combined by the mesh's plain
 collectives (``launch/mesh.pmax``/``psum``).  The reference's ``constrain``
 (an XLA sharding hint) has no counterpart: the port's products are not
-split over cards (ROADMAP Queue 1).  :func:`cross_entropy_loss` is the LM
+split over cards (ROADMAP Queue 2).  :func:`cross_entropy_loss` is the LM
 training loss.
 
 Each function promotes types as the reference does: a bfloat16 tensor times
@@ -159,6 +159,8 @@ def chunked_attention(
     hkv, sk, dv = v.shape[1], v.shape[2], v.shape[3]
     group = hq // k.shape[1]
     bq, bk = min(block_q, sq), min(block_k, sk)
+    if q.device.type == "meta":  # no memory to bound: one block (the same products)
+        bq, bk = sq, sk
     nq, nk = -(-sq // bq), -(-sk // bk)
     qpad, kpad = nq * bq - sq, nk * bk - sk
     if qpad:
@@ -211,7 +213,7 @@ def _dlse_blocks(mesh, q: Tensor, cache: tuple, seq_axis: int, valid: int):
     masked key adds exactly zero to every sum), a block with none left is
     dropped.  The cache is placed here on every call: on an emulated mesh
     that costs views, over distinct cards it would copy the cache each
-    step (placing it once is ROADMAP Queue 1 work)."""
+    step (placing it once is ROADMAP Queue 2 work)."""
     from repro_torch.runtime import mesh_rules as mr
 
     batch = ("pod", "data") if "pod" in mesh.axis_names else "data"

@@ -15,7 +15,7 @@ autograd saved is written.  The chunked layer's ``lax.scan`` over edge
 chunks becomes a Python loop whose bodies run under checkpoint, as the
 reference's scan bodies run under ``jax.checkpoint``.  The reference's
 ``constrain`` of the saved residual to a node sharding is the identity on
-one device (the mesh path is ROADMAP Queue 1 item 9(f)).
+one device (splitting over cards is ROADMAP Queue 2 work).
 
 Config: n_layers=12, d_hidden=128, l_max=6, m_max=2, 8 heads.
 """

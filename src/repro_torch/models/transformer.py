@@ -220,8 +220,9 @@ def _attention(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor, ca
     [B, Smax, kv_rank], [B, Smax, rope_dim] for MLA."""
     b, sq, d = x.shape
     dev = x.device.type
-    if dev not in ("cuda", "cpu"):
-        raise ValueError(f"the transformer runs on cuda or cpu, not {x.device}")
+    if dev not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"the transformer runs on cuda or cpu (meta: shapes), not {x.device}")
+    kernel = dev != "cpu"  # K5 on the card; on meta its wrapper gives the shapes
     if cache is not None and (sq != 1 or kv_len is None):
         raise ValueError(f"a decode step takes one token per row and its kv_len; got S={sq}, "
                          f"kv_len={kv_len}")
@@ -238,12 +239,12 @@ def _attention(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor, ca
     v = v.reshape(b, sq, hkv, dh).transpose(1, 2)
     q = cm.apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = cm.apply_rope(k, positions[:, None, :], cfg.rope_theta)
-    if dev == "cuda":
+    if kernel:
         # q scaled in its own dtype, as the reference's chunked_attention
         # does (repro/models/common.py), and K5 told not to scale again
         qs = q * dh**-0.5
     if cache is None:
-        if dev == "cuda":
+        if kernel:
             out = fa.flash_attention(qs, k, v, causal=True, scale=1.0)
         else:
             out = cm.chunked_attention(q, k, v, causal=True,
@@ -258,7 +259,7 @@ def _attention(cfg: TransformerConfig, w: dict, x: Tensor, positions: Tensor, ca
             # the cache split over the model axis along its sequence; only
             # [B, Hq, D] softmax statistics cross between shards
             out = cm.dlse_decode_attention(q, ck, cv, kv_len)
-        elif dev == "cuda":
+        elif kernel:
             # K5 over the valid prefix (a strided view): the reference's
             # kv_valid_len = pos[0] + 1, one length for every row
             out = fa.flash_attention(qs, ck[:, :, :kv_len], cv[:, :, :kv_len], causal=False,
@@ -389,11 +390,16 @@ def forward(
     kv_len = None
     if cache is not None:
         smax = cache[0].shape[cache_seq_axis(cfg)]
-        pos = positions[:, 0].cpu()
-        if s != 1 or bool(((pos < 0) | (pos >= smax)).any()):
-            raise ValueError(f"decode takes one token per row at positions in [0, {smax}); "
-                             f"got S={s}, positions {pos.tolist()}")
-        kv_len = int(pos[0]) + 1
+        if positions.device.type == "meta":
+            # no positions to read: a decode over the whole cache, the
+            # reference's cost (it reads every key and masks the rest)
+            kv_len = smax
+        else:
+            pos = positions[:, 0].cpu()
+            if s != 1 or bool(((pos < 0) | (pos >= smax)).any()):
+                raise ValueError(f"decode takes one token per row at positions in [0, {smax}); "
+                                 f"got S={s}, positions {pos.tolist()}")
+            kv_len = int(pos[0]) + 1
     remat = cache is None and not keep_cache and cfg.remat and torch.is_grad_enabled()
     x = params["embed"][tokens].to(cfg.dtype)
     lay = params["layers"]

@@ -151,6 +151,13 @@ class NamedSharding:
             out.append(slice(k * step, (k + 1) * step))
         return tuple(out)
 
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        """The shape of the block each coordinate holds of a global
+        ``shape`` (JAX's ``NamedSharding.shard_shape``): every coordinate's
+        block has it, as the splits are even (an uneven one raises)."""
+        idx = self._index(tuple(shape), (0,) * len(self.mesh.axis_names))
+        return tuple(n if s.start is None else s.stop - s.start for s, n in zip(idx, shape))
+
     def place(self, x) -> "Placed":
         """Every mesh coordinate's block of the global ``x`` on its device:
         a view where the device is ``x``'s own, one copy a distinct

@@ -95,8 +95,7 @@ def test_configs_match_the_reference(name):
     assert (arch.name, arch.family) == (ref.name, ref.family)
     assert {k: (s.kind, s.meta) for k, s in arch.shapes.items()} == \
         {k: (s.kind, s.meta) for k, s in ref.shapes.items()}
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch("diff-ife")
+    assert get_arch("diff-ife").family == "dc"
     with pytest.raises(KeyError, match="unknown"):
         get_arch("gpt-17")
 
